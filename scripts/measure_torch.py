@@ -1,0 +1,203 @@
+#!/usr/bin/env python3
+"""Measurements of the PyTorch/CUDA port (``tfhe_tpu_torch``) on one CUDA card.
+
+    python3 scripts/measure_torch.py     # from the root of the checkout
+
+At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
+
+  * Kernel B (``blind_rotate_fused``) alone, both digit modes, at
+    B = 8 .. 2048;
+  * the SM clock and power draw while Kernel B runs at B=1024 (fusedb),
+    sampled by ``nvidia-smi`` every 100 ms, and from them the u32
+    multiply-adds per clock per busy SM;
+  * one NAND gate per impl: fusedb and fused at B=1024, auto (Kernel A) at
+    B=64 and B=1024, matmul (plain) at B=64;
+  * the device busy time of one fusedb gate (B=1024) and one auto gate (B=64)
+    from ``torch.profiler``, with the kernels that took the most of it.
+
+Every round's milliseconds are kept unrounded.  The results go to
+``chiprun_out/measure_torch.json`` and, as one JSON line, to the end of the
+standard output.  It imports neither JAX nor ``tfhe_tpu``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from datetime import datetime
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = ROOT / "chiprun_out" / "measure_torch.json"
+KERNEL_B_BATCHES = (8, 64, 256, 512, 1024, 2048)
+GATES = (("fusedb", 1024), ("fused", 1024), ("auto", 64), ("auto", 1024), ("matmul", 64))
+SAMPLES_PER_CTA = 8  # Kernel B's kBT (csrc/blind_rotate_kernel.cu)
+IMAD_PER_CLK_PER_SM = 64  # Hopper's INT32 multiply-add lanes per SM
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def event_rounds(fn, rounds: int) -> list[float]:
+    """Device ms of ``fn()`` in each of ``rounds`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def sampled_clocks(fn, calls: int) -> tuple[float, list[tuple[float, float]]]:
+    """Run ``fn()`` ``calls`` times back to back while ``nvidia-smi`` samples
+    the SM clock (MHz) and power draw (W) every 100 ms.  Return the mean
+    device ms per call and the samples whose timestamps fall inside the
+    window, which opens when the first call is queued and closes when the
+    last one has finished."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-i", str(torch.cuda.current_device()),
+         "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(1.0)  # let the sampler start before the window opens
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = datetime.now()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        t1 = datetime.now()
+        time.sleep(0.3)
+    finally:
+        smi.terminate()
+        text, _ = smi.communicate(timeout=30)
+    samples = []
+    for line in text.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) != 3:
+            continue
+        stamp = datetime.strptime(parts[0], "%Y/%m/%d %H:%M:%S.%f")
+        if t0 <= stamp <= t1:
+            samples.append((float(parts[1]), float(parts[2])))
+    return start.elapsed_time(end) / calls, samples
+
+
+def device_busy(fn) -> tuple[float, list[tuple[str, float, int]]]:
+    """Device ms summed over all kernels of one ``fn()`` under
+    ``torch.profiler``, and the eight kernels that took the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(k.key, k.self_device_time_total / 1e3, k.count) for k in prof.key_averages()
+            if k.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:8]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("measure_torch: needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import tfhe_tpu_torch as tfhe
+    from tfhe_tpu_torch.models import bootstrap as mboot
+    from tfhe_tpu_torch.models import test_vector as mtv
+    from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
+    from tfhe_tpu_torch.ops.torus import switch_modulus, to_torch_u32
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[torch.cuda.current_device()]
+    log(card)
+    dev = torch.device("cuda")
+    p = tfhe.get_params("default_128")
+    ck, sk = tfhe.keygen(p, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2, size=(2, max(KERNEL_B_BATCHES)), dtype=np.uint32)
+    ca = tfhe.encrypt(ck, bits[0], torch.Generator().manual_seed(1))
+    cb = tfhe.encrypt(ck, bits[1], torch.Generator().manual_seed(2))
+    tv = to_torch_u32(mtv.gate_test_vector(p, "nand"), dev)
+    res = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+           "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+
+    def rotation_inputs(b):
+        approx = switch_modulus(cb[:b] * 2 + ca[:b], p.log_q, p.log_degree + 1)
+        return mboot._init_acc(p, approx, tv)
+
+    for b in KERNEL_B_BATCHES:
+        acc0, a_hat = rotation_inputs(b)
+        for balanced in (True, False):
+            mode = "fusedb" if balanced else "fused"
+            t = event_rounds(
+                lambda: brk.blind_rotate_fused(p, acc0, sk.bk_u32, a_hat, balanced),
+                3 if b >= 256 else 5)
+            res[f"kernelB_{mode}_B{b}_ms"] = t
+            log(f"Kernel B {mode} B={b}: ms {t}")
+
+    # SM clock during Kernel B: one CTA holds SAMPLES_PER_CTA samples for all
+    # steps on one SM, so the multiply-add rate per busy SM is that CTA's work
+    # over the kernel's time.
+    acc0, a_hat = rotation_inputs(1024)
+    ms, samples = sampled_clocks(
+        lambda: brk.blind_rotate_fused(p, acc0, sk.bk_u32, a_hat, True), 3)
+    k1, n = p.k + 1, p.degree
+    imad_per_cta = SAMPLES_PER_CTA * p.n * (k1 * p.pbs_decomposer.levels) * n * k1 * n
+    per_sm_rate = imad_per_cta / (ms / 1e3)
+    clocked = {"ms_per_call": ms, "samples_mhz_w": samples, "imad_per_s_per_sm": per_sm_rate}
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no sample inside the Kernel B window")
+    clocks = sorted(s[0] for s in samples)
+    lo, hi = clocks[0], clocks[-1]
+    share = [per_sm_rate / (c * 1e6) / IMAD_PER_CLK_PER_SM for c in (hi, lo)]
+    clocked.update(sm_mhz_min=lo, sm_mhz_max=hi, sm_mhz_median=clocks[len(clocks) // 2],
+                   power_w_max=max(s[1] for s in samples),
+                   imad_share_of_peak_at_max_and_min_clock=share)
+    res["kernelB_fusedb_B1024_clocked"] = clocked
+    log(f"Kernel B fusedb B=1024 under nvidia-smi: {ms} ms per call, {len(samples)} samples, "
+        f"SM clock {lo}-{hi} MHz, power up to {clocked['power_w_max']} W, "
+        f"{per_sm_rate:.6e} IMAD/s per SM, share of the {IMAD_PER_CLK_PER_SM}/clk peak {share}")
+
+    for impl, b in GATES:
+        t = event_rounds(lambda: tfhe.gates.nand(sk, ca[:b], cb[:b], impl=impl),
+                         1 if impl == "matmul" else 3)
+        res[f"gate_{impl}_B{b}_ms"] = t
+        log(f"gate {impl} B={b}: ms {t}, {b / (min(t) / 1e3)} gate bootstraps/s (best)")
+
+    for impl, b in (("fusedb", 1024), ("auto", 64)):
+        gate_ms = event_rounds(lambda: tfhe.gates.nand(sk, ca[:b], cb[:b], impl=impl), 1)[0]
+        busy_ms, top = device_busy(lambda: tfhe.gates.nand(sk, ca[:b], cb[:b], impl=impl))
+        res[f"profile_{impl}_B{b}"] = {"gate_ms": gate_ms, "device_busy_ms": busy_ms,
+                                       "idle_share": 1 - busy_ms / gate_ms,
+                                       "top": [list(r) for r in top]}
+        log(f"profile {impl} B={b}: gate {gate_ms} ms (untraced), device busy {busy_ms} ms")
+        for name, t, count in top:
+            log(f"    {t:.3f} ms over {count} launches  {name[:80]}")
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    OUT.parent.mkdir(exist_ok=True)
+    OUT.write_text(json.dumps(res, indent=1))
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,153 @@
+"""Programmable bootstrapping (port of ``tfhe_tpu/models/bootstrap.py``;
+reference: src/bootstrapping.rs).
+
+Pipeline (src/bootstrapping.rs:58-120):
+  1. modulus-switch the LWE ciphertext from q=2^32 to 2N;
+  2. acc = trivial-GLWE(v(X)) * X^(-b_hat);
+  3. n CMUX steps, acc += EP(digits(acc * X^a_i - acc), BK_i), the whole
+     batch advancing together;
+  4. sample-extract coefficient 0 -> LWE of dimension k*N;
+  5. key-switch back to dimension n.
+
+Blind-rotation backends, all exact mod 2^32:
+
+  * ``matmul`` — the plain scan: a Python loop over the steps, Toeplitz
+    matmul contraction (counterpart of ``rotate_chunk_xla``).  Runs anywhere.
+  * ``pallas`` — the same loop with the transpose-free [k+1, B, N]
+    accumulator, level-major digit rows and ``ServerKey.bk_lm``; each step's
+    contraction is Kernel A (``ops/cuda/ep_kernel.py``).  Default on CUDA.
+  * ``fused`` / ``fusedb`` — the whole rotation in one launch of Kernel B
+    (``ops/cuda/blind_rotate_kernel.py``), with the reference carry-chain
+    digits or the closed-form balanced digits (DIVERGENCES.md #3).
+
+On CPU tensors the kernel backends run their kernels' plain twins.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tfhe_tpu_torch.models import glwe as mglwe
+from tfhe_tpu_torch.models import keyswitch as mks
+from tfhe_tpu_torch.ops.cuda.blind_rotate_kernel import blind_rotate_fused
+from tfhe_tpu_torch.ops.cuda.ep_kernel import ep_contract_rbn
+from tfhe_tpu_torch.ops.decomposer import decompose_signed_planes
+from tfhe_tpu_torch.ops.poly import ep_combine, ep_combine_planes, ep_contract_matmul, monomial_mul
+from tfhe_tpu_torch.ops.torus import switch_modulus, u32
+from tfhe_tpu_torch.params import TfheParams
+
+#: every backend string ``blind_rotate`` accepts
+VALID_IMPLS = ("auto", "matmul", "pallas", "fused", "fusedb")
+
+
+def resolve_impl(impl: str, device) -> str:
+    """'auto' -> 'pallas' for CUDA tensors, 'matmul' on the CPU
+    (as ``tfhe_tpu``'s 'auto' picks its per-step kernel on the accelerator)."""
+    if impl not in VALID_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; valid: {VALID_IMPLS}")
+    if impl != "auto":
+        return impl
+    return "pallas" if torch.device(device).type == "cuda" else "matmul"
+
+
+def sample_extract(glwe_ct, index=0) -> torch.Tensor:
+    """Extract coefficient ``index`` as an LWE of dimension k*N
+    (src/bootstrapping.rs:122-156, general form).
+
+    a'[i*N + j] = a_i[(index - j) mod N], negated where j > index; b' =
+    b[index].  ``index`` is an int or an int tensor broadcastable over the
+    batch.
+    """
+    ct = u32(glwe_ct)
+    n = ct.shape[-1]
+    k = ct.shape[-2] - 1
+    h = torch.as_tensor(index, device=ct.device).to(torch.int64)
+    h = torch.broadcast_to(h, ct.shape[:-2])[..., None]  # [..., 1]
+    j = torch.arange(n, device=ct.device)
+    idx = torch.remainder(h - j, n)  # [..., N]
+    a = ct[..., :k, :]
+    w = torch.gather(a, -1, idx[..., None, :].expand(a.shape))
+    w = torch.where((j > h)[..., None, :], -w, w)
+    b = torch.gather(ct[..., k, :], -1, h)
+    return torch.cat([w.reshape(ct.shape[:-2] + (k * n,)), b], dim=-1)
+
+
+def sample_extract0(glwe_ct) -> torch.Tensor:
+    """Coefficient-0 specialisation (the PBS hot path): a'[i*N+j] is a_i[0]
+    followed by the negated reversal of a_i[1:]."""
+    ct = u32(glwe_ct)
+    k = ct.shape[-2] - 1
+    a = ct[..., :k, :]
+    w = torch.cat([a[..., :1], -torch.flip(a[..., 1:], dims=(-1,))], dim=-1)
+    flat = w.reshape(ct.shape[:-2] + (k * ct.shape[-1],))
+    return torch.cat([flat, ct[..., k, :1]], dim=-1)
+
+
+def _init_acc(params: TfheParams, approx_ct, tv_encoded):
+    """acc0 = trivial(v(X)) * X^(-b_hat), batched (src/bootstrapping.rs:79-86);
+    returns acc0 u32[B, k+1, N] and a_hat int32[n, B]."""
+    approx_ct = u32(approx_ct)
+    n_dim = params.lwe_dimension
+    b_hat = approx_ct[..., n_dim]
+    tv = u32(tv_encoded, approx_ct.device)
+    acc0 = mglwe.trivial_encrypt(tv.expand(approx_ct.shape[:-1] + tv.shape),
+                                 params.glwe_dimension)
+    acc0 = mglwe.mul_monomial(acc0, -b_hat)
+    a_hat = approx_ct[..., :n_dim].movedim(-1, 0).contiguous()  # [n, B]
+    return acc0, a_hat
+
+
+def rotate_chunk_matmul(params: TfheParams, acc, bk_chunk, a_chunk) -> torch.Tensor:
+    """Plain CMUX steps over a key chunk: acc u32[B, k+1, N], bk_chunk
+    u32[steps, R, k+1, N] (canonical rows), a_chunk int32[steps, B]."""
+    k1 = params.glwe_dimension + 1
+    for bk_i, a_i in zip(bk_chunk, a_chunk):
+        rot = mglwe.mul_monomial(acc, a_i)  # acc * X^{a_i}
+        digits = mglwe.decompose(rot - acc, params.pbs_decomposer)  # [B, R, N]
+        acc = acc + ep_combine(ep_contract_matmul(digits, bk_i), k1)
+    return acc
+
+
+def rotate_chunk_pallas(params: TfheParams, acc, bk_lm_chunk, a_chunk) -> torch.Tensor:
+    """CMUX steps through Kernel A with the [B, k+1, N] acc interface (the
+    loop runs in the kernel's [k+1, B, N] layout).  ``bk_lm_chunk`` is a slice
+    of ``ServerKey.bk_lm`` (level-major rows)."""
+    k1 = params.glwe_dimension + 1
+    levels = params.pbs_decomposer.levels
+    acc_t = acc.transpose(0, 1).contiguous()  # [k+1, B, N]
+    for bk_i, a_i in zip(bk_lm_chunk, a_chunk):
+        rot = monomial_mul(acc_t, a_i[None, :])
+        digits = decompose_signed_planes(rot - acc_t, params.pbs_decomposer)
+        digits = digits.reshape((levels * k1,) + digits.shape[2:])  # [R, B, N]
+        acc_t = acc_t + ep_combine_planes(ep_contract_rbn(digits, bk_i))
+    return acc_t.transpose(0, 1).contiguous()
+
+
+def blind_rotate(params: TfheParams, approx_ct, server_key, tv_encoded,
+                 impl: str = "auto") -> torch.Tensor:
+    """n-step CMUX loop (src/bootstrapping.rs:79-105); batched.
+
+    approx_ct: u32[B, n+1] already mod-switched to 2N; tv_encoded: u32[N]
+    (the *encoded* test vector, src/bootstrapping.rs:82-86).
+    """
+    approx_ct = u32(approx_ct)
+    impl = resolve_impl(impl, approx_ct.device)
+    acc0, a_hat = _init_acc(params, approx_ct, tv_encoded)
+    if impl in ("fused", "fusedb"):
+        return blind_rotate_fused(params, acc0, server_key.bk_u32, a_hat,
+                                  balanced=impl == "fusedb")
+    if impl == "pallas":
+        return rotate_chunk_pallas(params, acc0, server_key.bk_lm, a_hat)
+    return rotate_chunk_matmul(params, acc0, server_key.bk_u32, a_hat)
+
+
+def pbs(params: TfheParams, ct, server_key, tv_encoded, impl: str = "auto") -> torch.Tensor:
+    """Full programmable bootstrap (src/bootstrapping.rs:58-120); batched.
+
+    ct: u32[B, n+1]; server_key: models.keys.ServerKey; tv_encoded: u32[N].
+    """
+    approx = switch_modulus(u32(ct), params.log_q, params.log_degree + 1)
+    acc = blind_rotate(params, approx, server_key, tv_encoded, impl=impl)
+    extracted = sample_extract0(acc)
+    return mks.key_switch(extracted, params.glwe_dimension * params.degree,
+                          params.ks_decomposer, server_key.ksk_mat)

@@ -1,0 +1,99 @@
+"""Test-vector (LUT) polynomial construction (reference: src/test_vector.rs).
+
+Pure host-side NumPy: tiny tables built once per (params, gate) and cached.
+The PBS consumes the *encoded* polynomial (tv << (log_q - log_p - padding)),
+exactly as src/bootstrapping.rs:82-86 encodes it before the blind rotation.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+
+from tfhe_tpu_torch.params import TfheParams
+
+
+def construct_test_from_lut(params: TfheParams, lut) -> np.ndarray:
+    """LUT (len 2^log_p) -> test-vector polynomial u32[N]
+    (src/test_vector.rs:38-67): repeat each value N/2^log_p times, negate the
+    first half-block (mod p) and rotate left by half a block so negative noise
+    around 0 decodes to the right entry."""
+    p_mod = 1 << params.log_p
+    lut = list(lut)
+    assert len(lut) == p_mod
+    repetition = params.degree // p_mod
+    tv = np.repeat(np.asarray(lut, dtype=np.uint32), repetition)
+    half = repetition // 2
+    head = tv[:half].copy()
+    nz = head != 0
+    head[nz] = np.uint32(p_mod) - head[nz]
+    tv[:half] = head
+    return np.roll(tv, -half)
+
+
+def encode_tv(params: TfheParams, tv: np.ndarray) -> np.ndarray:
+    """Encode the LUT outputs onto the torus (src/glwe.rs:140-152)."""
+    shift = params.log_q - (params.log_p + params.padding_bits)
+    assert np.all(tv < (1 << params.log_p))
+    return (tv.astype(np.uint32) << np.uint32(shift)).astype(np.uint32)
+
+
+#: 2-input gate truth functions, generalizing src/boolean.rs:9-53's AND/OR to
+#: the full suite (notes/Boolean Gates.md:2-11)
+GATE_FNS = {
+    "and": lambda l, r: l & r,
+    "or": lambda l, r: l | r,
+    "xor": lambda l, r: l ^ r,
+    "nand": lambda l, r: 1 - (l & r),
+    "nor": lambda l, r: 1 - (l | r),
+    "xnor": lambda l, r: 1 - (l ^ r),
+    "andny": lambda l, r: (1 - l) & r,  # not(l) and r
+    "andyn": lambda l, r: l & (1 - r),
+    "orny": lambda l, r: ((1 - l) | r) & 1,
+    "oryn": lambda l, r: (l | (1 - r)) & 1,
+}
+
+
+@lru_cache(maxsize=None)
+def gate_test_vector(params: TfheParams, gate: str) -> np.ndarray:
+    """Encoded test vector for a named 2-input gate: input index i decodes as
+    (lhs, rhs) = (bit1(i), bit0(i)) (src/test_vector.rs:5-20)."""
+    f = GATE_FNS[gate]
+    lut = [f((i >> 1) & 1, i & 1) for i in range(1 << params.log_p)]
+    return encode_tv(params, construct_test_from_lut(params, lut))
+
+
+@lru_cache(maxsize=None)
+def lut_test_vector(params: TfheParams, lut: tuple) -> np.ndarray:
+    """Encoded test vector for an arbitrary LUT over the 2^log_p cleartext
+    space (generic programmable bootstrapping)."""
+    return encode_tv(params, construct_test_from_lut(params, list(lut)))
+
+
+#: 3-input gate truth functions over index i = 4*c2 + 2*c1 + c0
+#: (notes/Boolean Gates.md:7-11); require log_p >= 3
+GATE3_FNS = {
+    "mux": lambda s, a, b: a if s else b,  # s ? a : b — ONE PBS instead of 3
+    "maj": lambda a, b, c: (a & b) | (a & c) | (b & c),
+    "and3": lambda a, b, c: a & b & c,
+    "or3": lambda a, b, c: a | b | c,
+    "xor3": lambda a, b, c: a ^ b ^ c,
+}
+
+
+@lru_cache(maxsize=None)
+def gate3_test_vector(params: TfheParams, gate: str) -> np.ndarray:
+    """Encoded test vector for a named 3-input gate: index i decodes as
+    (bit2, bit1, bit0)."""
+    assert params.log_p >= 3, "3-input gates need log_p >= 3"
+    f = GATE3_FNS[gate]
+    lut = [f((i >> 2) & 1, (i >> 1) & 1, i & 1) for i in range(1 << params.log_p)]
+    return encode_tv(params, construct_test_from_lut(params, lut))
+
+
+@lru_cache(maxsize=None)
+def identity_test_vector(params: TfheParams) -> np.ndarray:
+    """Encoded identity LUT (src/test_vector.rs:23-35)."""
+    lut = list(range(1 << params.log_p))
+    return encode_tv(params, construct_test_from_lut(params, lut))
