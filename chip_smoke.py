@@ -4,7 +4,8 @@
     python3 chip_smoke.py        # from the root of the checkout, one card
 
 It builds the hand-written kernels from ``tfhe_tpu_torch/csrc/`` (into
-``build/tfhe_tpu_torch/``) and then runs five phases.  Each phase raises on
+``build/tfhe_tpu_torch/``) and then runs five phases.  It prints the whole
+run's seconds at the end.  Each phase raises on
 failure, so the script exits nonzero and prints no result line.
 
   0. require CUDA; print the card, its power limit, torch and CUDA versions;
@@ -12,9 +13,11 @@ failure, so the script exits nonzero and prints no result line.
      and ptxas' resource report;
   2. hold each kernel against its plain PyTorch twin (``torch.equal``) at
      nano, test_insecure and a 16-step slice of the default_128 key (Kernel C
-     in both forms: V=1 and the BMMP V=3);
-  3. three paths at default_128 through the public API (keygen with the BMMP
-     key and the latency key, encrypt, NAND, decrypt), each with the launch
+     in both forms: V=1 and the BMMP V=3; Kernel D also on an all-ones
+     canonical key, the key side of its CRT range at its bound);
+  3. four paths at default_128 through the public API (keygen with the BMMP
+     key, the latency key and both NTT key forms, whose seconds and peak
+     device memory it prints; encrypt, NAND, decrypt), each with the launch
      counters set to 0 just before it and read just after:
        - throughput: B=1024 with impl 'fused' and 'fusedb', and B=64 with the
          default impl (Kernel A); 'auto' must equal the 'fused' rows;
@@ -22,17 +25,26 @@ failure, so the script exits nonzero and prints no result line.
          ``circuits.add_uint`` at B=1 through 'fusedl'; 'fusedl' must equal
          the 'fused' rows;
        - bmmp: the BMMP scan at B=64 (Kernel A at 3R rows); 'bmmpl' must
-         equal its rows.
+         equal its rows;
+       - block-NTT: 'nttf' (Kernel D) at B=1024 and the plain scans 'ntt' and
+         'ntts' at B=64; each must equal the 'fused' rows.
      Every gate needs 0 errors and a noise margin below 0.5, the add must be
      right, and each path must have launched its kernels;
   4. time 'fusedb' at B=1024 with CUDA events, with the SM clock sampled by
      nvidia-smi meanwhile (``scripts/measure_torch.py:sampled_clocks``), then
      each kernel against its twin at the main paths' shapes (Kernel A at R
      and at the bmmp scan's 3R rows), then the small-batch gates, the 8-bit
-     add, and Kernel C against its twin at B=1, B=8 (V=1) and B=4 (V=3).
+     add, Kernel C against its twin at B=1, B=8 (V=1) and B=4 (V=3), then
+     the 'nttf' gate at B=1024 with the SM clock sampled, Kernel D against
+     its twin at [B=1024, 722 steps], and the 'ntt' and 'ntts' gates at B=64.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  It imports neither JAX nor ``tfhe_tpu``.
+The line before the last is the kernels' JSON record, each kernel with its
+bound: the larger of its operations (int8 multiply-adds as the TPU kernel
+formulates them) over the int8 tensor-core peak and its bytes (each input
+read once, each output written once) over the memory rate, at the H100's
+data-sheet rates.  No single PyTorch call computes any of these functions,
+so ``library_ms`` is null.  The last line is ``{"ok": true, "device":
+{...}}``.  It imports neither JAX nor ``tfhe_tpu``.
 """
 
 from __future__ import annotations
@@ -53,6 +65,11 @@ AUTO_B = 64  # batch of the default-impl (Kernel A) gate
 SLICE_STEPS = 16  # default_128 key steps held against the twin in phase 2
 BMMP_B = 64  # batch of the BMMP scan gate (Kernel A at 3R rows)
 ADD_W = 8  # width of the encrypted add on the latency path
+NTT_B = 64  # batch of the plain block-NTT scans 'ntt' and 'ntts'
+#: H100 SXM data sheet: int8 tensor cores 1979e12 ops/s (2 per multiply-add),
+#: HBM 3.35e12 bytes/s
+INT8_MACS_PER_S = 1979e12 / 2
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -72,6 +89,17 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(macs: float, nbytes: float) -> tuple[float, str]:
+    """The least ms the card could take: the larger of the multiply-adds
+    over the int8 peak and the bytes over the memory rate, and which."""
+    ops_ms, bytes_ms = macs / INT8_MACS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def rnd_u32(rng, shape) -> np.ndarray:
@@ -173,6 +201,41 @@ def phase2_latency(latk, get_params, to_torch_u32, params, sk, dev) -> None:
     torch.cuda.synchronize()
 
 
+def phase2_nttf(nttk, ntt, get_params, to_torch_u32, params, sk, dev) -> None:
+    """Kernel D against its twin: random canonical keys (turned into the lhs
+    form) at nano, test_insecure (B=256 takes 2 samples per CTA) and
+    large_2048 (4 key limbs), an all-0xFFFFFFFF key, and a 16-step slice of
+    the default_128 lhs key (the main path at B=1024, 4 samples per CTA, is
+    held against the twin in phase 4)."""
+    rng = np.random.default_rng(6)
+    cases = [(name, b, "random") for name, bs in (("nano", (1, 3, 8)),
+                                                   ("test_insecure", (1, 7, 64, 256)),
+                                                   ("large_2048", (3,))) for b in bs]
+    cases += [("test_insecure", 7, "all-ones"), (params.name, 32, "slice")]
+    for name, b, kind in cases:
+        p = get_params(name)
+        k1, n = p.glwe_dimension + 1, p.degree
+        if kind == "slice":
+            bk_lhs = sk.bk_ntt_lhs[:SLICE_STEPS]
+        else:
+            # large_2048 (4 key limbs) on 4 steps of its 722
+            shape = (min(p.lwe_dimension, 4), k1 * p.pbs_decomposer.levels, k1, n)
+            bk = (np.full(shape, 0xFFFFFFFF, np.uint32) if kind == "all-ones"
+                  else rnd_u32(rng, shape))
+            bk_lhs = ntt.ntt_key_lhs_form(
+                ntt.make_ep_ntt_key(to_torch_u32(bk, dev), ntt.plan_for_params(p)))
+        steps = bk_lhs.shape[0]
+        acc0 = to_torch_u32(rnd_u32(rng, (b, k1, n)), dev)
+        a_hat = torch.from_numpy(rng.integers(0, 2 * n, size=(steps, b), dtype=np.int32)).to(dev)
+        got = nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat)
+        want = nttk.blind_rotate_nttf_ref(p, acc0, bk_lhs, a_hat)
+        require(torch.equal(got, want),
+                f"blind_rotate_nttf != twin at {name} B={b} steps={steps} ({kind} key)")
+        log(f"  blind_rotate_nttf {kind:8s} {name:13s} B={b:<4d} steps={steps:<3d} equal; "
+            f"plan {nttk.last_plan}")
+    torch.cuda.synchronize()
+
+
 def drive(kernels, fn):
     """Run ``fn()`` with every launch counter set to 0 just before it; return
     its result and the counts read just after it."""
@@ -197,32 +260,54 @@ def check_gates(tfhe, noise, to_numpy_u32, ck, outs, want) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     card = phase0()
     sys.path[:0] = [str(ROOT), str(ROOT / "scripts")]
-    from measure_torch import sampled_clocks
+    from measure_torch import dp4a_per_sample_step, sampled_clocks
     import tfhe_tpu_torch as tfhe
     from tfhe_tpu_torch.models import bootstrap as mboot
     from tfhe_tpu_torch.models import keyswitch as mks
+    from tfhe_tpu_torch.models.keys import ntt_build_peak_bytes, ntt_form_bytes
     from tfhe_tpu_torch.models import test_vector as mtv
     from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
     from tfhe_tpu_torch.ops.cuda import ep_kernel as epk
+    from tfhe_tpu_torch.ops import ntt
     from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
+    from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
     from tfhe_tpu_torch.ops.torus import switch_modulus, to_numpy_u32, to_torch_u32
     from tfhe_tpu_torch.utils import noise
 
     dev = torch.device("cuda")
-    kernels = (epk.KERNEL, brk.KERNEL, latk.KERNEL)
+    kernels = (epk.KERNEL, brk.KERNEL, latk.KERNEL, nttk.KERNEL)
     phase1(kernels)
 
     params = tfhe.get_params("default_128")
     t0 = time.perf_counter()
-    ck, sk = tfhe.keygen(params, torch.Generator().manual_seed(0), device=dev, bmmp=True)
+    ck, sk = tfhe.keygen(params, torch.Generator().manual_seed(0), bmmp=True)
+    require(sk.device.type == "cuda", f"keygen put the keys on {sk.device}")
     sk = tfhe.with_latency_key(sk)
     torch.cuda.synchronize()
     log(f"keygen {params.name} (n={params.n}, k={params.k}, N={params.degree}) with the BMMP "
         f"and latency keys: {time.perf_counter() - t0:.2f} s")
+    for name, attach in (("with_ntt_key", tfhe.with_ntt_key),
+                         ("with_ntt_lhs_key", tfhe.with_ntt_lhs_key)):
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        # the guard counts the forms the key holds, the new form and a chunk's workspace
+        held = nbytes(*(f for f in (sk.bk_ntt, sk.bk_ntt_lhs) if f is not None))
+        guard = ntt_build_peak_bytes(sk)
+        t0 = time.perf_counter()
+        sk = attach(sk)
+        torch.cuda.synchronize()
+        counted = held + torch.cuda.max_memory_allocated() - before
+        log(f"{name}: {time.perf_counter() - t0:.3f} s; device memory allocated before "
+            f"{before / 2**30:.3f} GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+            f"held forms + peak rise {counted / 2**30:.3f} GiB against the guard's "
+            f"{guard / 2**30:.3f} GiB (one form is {ntt_form_bytes(params) / 2**30:.3f} GiB)")
+        require(counted <= guard, f"{name} peaked above what its memory guard counts")
     phase2(epk, brk, tfhe.get_params, to_torch_u32, params, sk, dev)
     phase2_latency(latk, tfhe.get_params, to_torch_u32, params, sk, dev)
+    phase2_nttf(nttk, ntt, tfhe.get_params, to_torch_u32, params, sk, dev)
 
     log(f"phase 3: main paths, {params.name} NAND")
     rng = np.random.default_rng(3)
@@ -275,8 +360,18 @@ def main() -> int:
     log(f"  bmmpl == bmmp[:4] bit for bit; launches: {bmmp_launches}")
     require(bmmp_launches["ep_contract_rbn"] > 0,
             f"Kernel A was not launched on the bmmp path: {bmmp_launches}")
+    log(f"  block-NTT path: nttf at B={MAIN_B}, ntt and ntts at B={NTT_B}")
+    ntt_outs, ntt_launches = drive(kernels, lambda: {
+        "nttf": nand("nttf", MAIN_B), "ntt": nand("ntt", NTT_B), "ntts": nand("ntts", NTT_B)})
+    check_gates(tfhe, noise, to_numpy_u32, ck, ntt_outs, want)
+    for impl, out in ntt_outs.items():
+        require(torch.equal(out, fused_rows[:out.shape[0]]),
+                f"{impl} output differs from the fused (Kernel B) rows")
+    log(f"  nttf == fused, ntt == ntts == fused[:{NTT_B}] bit for bit; launches: {ntt_launches}")
+    require(ntt_launches["blind_rotate_nttf"] > 0,
+            f"Kernel D was not launched on the block-NTT path: {ntt_launches}")
     for k, v in lat_launches.items():
-        launches[k] += v + bmmp_launches[k]
+        launches[k] += v + bmmp_launches[k] + ntt_launches[k]
 
     log(f"phase 4: timing, fusedb NAND at B={MAIN_B} (CUDA events)")
     tv = to_torch_u32(mtv.gate_test_vector(params, "nand"), dev)
@@ -373,24 +468,70 @@ def main() -> int:
             "Kernel C disagrees with its twin at the main path's shapes")
     lat_ms, lat_plain_ms, _ = lat[1, 1]
 
+    log(f"phase 4: block-NTT, nttf NAND at B={MAIN_B} (CUDA events)")
+    nttf_ms, clocked = sampled_clocks(lambda: tfhe.gates.nand(sk, ca, cb, impl="nttf"), 3)
+    mhz = sorted(c for c, _ in clocked) or [float("nan")]
+    log(f"  nttf B={MAIN_B}: {nttf_ms} ms per gate (mean of 3 back to back); "
+        f"{MAIN_B / (nttf_ms / 1e3):.1f} gate bootstraps/s; SM clock {len(clocked)} samples, "
+        f"{mhz[0]}-{mhz[-1]} MHz; card: {card}")
+    nd_ms = cuda_ms(lambda: nttk.blind_rotate_nttf(params, acc0, sk.bk_ntt_lhs, a_hat), 2)
+    plan_d = dict(nttk.last_plan)
+    got = nttk.blind_rotate_nttf(params, acc0, sk.bk_ntt_lhs, a_hat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = nttk.blind_rotate_nttf_ref(params, acc0, sk.bk_ntt_lhs, a_hat)
+    torch.cuda.synchronize()
+    nd_plain_ms = (time.perf_counter() - t0) * 1e3
+    nd_err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    log(f"  blind_rotate_nttf [B={MAIN_B}, n={params.n}]: kernel {nd_ms:.2f} ms, plain "
+        f"{nd_plain_ms:.2f} ms, max_abs_err {nd_err}; plan {plan_d}; card: {card}")
+    require(nd_err == 0, "Kernel D disagrees with its twin at the main path's shape")
+    for impl in ("ntt", "ntts"):
+        ms = cuda_ms(lambda: nand(impl, NTT_B), 2)
+        log(f"  gate {impl:6s} B={NTT_B:<3d} {ms:.3f} ms; card: {card}")
+
+    # bounds at the shapes the timings above ran
+    k1, n = params.k + 1, params.degree
+    r = k1 * params.pbs_decomposer.levels
+    steps = params.n
+    # Kernel A: int8 digits [R, B, N] and one step's rows in, int32 [C, 4, B, N] out
+    ep_bound = bound(r * AUTO_B * n * k1 * 4 * n,
+                     r * AUTO_B * n + nbytes(sk.bk_lm[0]) + k1 * 4 * AUTO_B * n * 4)
+    acc_bytes = 2 * nbytes(acc0) + nbytes(a_hat)  # acc in and out, exponents
+    bk_bound = bound(r * n * k1 * n * 4 * steps * MAIN_B, acc_bytes + nbytes(sk.bk_u32))
+    b1 = 2 * nbytes(acc0[:1]) + nbytes(a_hat[:, :1])
+    lat_bound = bound(k1 * 4 * sk.bk_lat.shape[-1] * n * steps, b1 + nbytes(sk.bk_lat))
+    nd_bound = bound(4 * dp4a_per_sample_step(params) * steps * MAIN_B,
+                     acc_bytes + nbytes(sk.bk_ntt_lhs))
+
     record = {"kernels": [
         {"name": "ep_contract_rbn", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/ep_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/ep_kernel.py:128",
          "launches": launches["ep_contract_rbn"], "max_abs_err": ep_err,
-         "ms": ep_ms, "plain_ms": ep_plain_ms},
+         "ms": ep_ms, "plain_ms": ep_plain_ms, "bound_ms": ep_bound[0],
+         "bound_by": ep_bound[1], "library_ms": None},
         {"name": "blind_rotate_fused", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/blind_rotate_kernel.py:862",
          "launches": launches["blind_rotate_fused"], "max_abs_err": bk_err,
-         "ms": bk_ms, "plain_ms": bk_plain_ms},
+         "ms": bk_ms, "plain_ms": bk_plain_ms, "bound_ms": bk_bound[0],
+         "bound_by": bk_bound[1], "library_ms": None},
         {"name": "blind_rotate_latency", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/latency_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/latency_kernel.py:220",
          "launches": launches["blind_rotate_latency"],
          "max_abs_err": max(e for *_, e in lat.values()),
-         "ms": lat_ms, "plain_ms": lat_plain_ms},
+         "ms": lat_ms, "plain_ms": lat_plain_ms, "bound_ms": lat_bound[0],
+         "bound_by": lat_bound[1], "library_ms": None},
+        {"name": "blind_rotate_nttf", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/ntt_kernel.cu",
+         "replaces": "tfhe_tpu/ops/pallas/ntt_kernel.py:211",
+         "launches": launches["blind_rotate_nttf"], "max_abs_err": nd_err,
+         "ms": nd_ms, "plain_ms": nd_plain_ms, "bound_ms": nd_bound[0],
+         "bound_by": nd_bound[1], "library_ms": None},
     ]}
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,12 +13,17 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
   * Kernel C (``blind_rotate_latency``) alone at B = 1 .. 8 (V=1) and
     B = 1 .. 4 (V=3), with its launch plan, and the SM clock while it runs
     at B=1;
-  * one NAND gate per impl: fusedb and fused at B=1024, auto (Kernel A) at
-    B=64 and B=1024, matmul (plain) at B=64, and the small-batch impls
-    fusedl, bmmpl, bmmp and fusedb at B <= 64;
-  * the device busy time of one fusedb gate (B=1024), one auto gate (B=64)
-    and one fusedl gate (B=1) from ``torch.profiler``, with the kernels that
-    took the most of it.
+  * the NTT key forms (``with_ntt_key``, ``with_ntt_lhs_key``): seconds and
+    peak device memory;
+  * Kernel D (``blind_rotate_nttf``) alone at B = 8 .. 2048, with its launch
+    plan, and the SM clock while it runs at B=1024, and from them the dp4a
+    per clock per busy SM;
+  * one NAND gate per impl: fusedb, fused and nttf at B=1024, auto (Kernel A)
+    at B=64 and B=1024, matmul (plain) at B=64, the small-batch impls
+    fusedl, bmmpl, bmmp and fusedb at B <= 64, and nttf, ntt and ntts at B=64;
+  * the device busy time of one fusedb and one nttf gate (B=1024), one auto
+    gate (B=64) and one fusedl gate (B=1) from ``torch.profiler``, with the
+    kernels that took the most of it.
 
 Every round's milliseconds are kept unrounded.  The results go to
 ``chiprun_out/measure_torch.json`` and, as one JSON line, to the end of the
@@ -42,8 +47,8 @@ OUT = ROOT / "chiprun_out" / "measure_torch.json"
 KERNEL_B_BATCHES = (8, 64, 256, 512, 1024, 2048)
 GATES = (("fusedb", 1024), ("fused", 1024), ("auto", 64), ("auto", 1024), ("matmul", 64),
          ("fusedl", 1), ("fusedl", 8), ("bmmpl", 1), ("bmmpl", 4), ("bmmp", 64),
-         ("fusedb", 1), ("fusedb", 8))
-PROFILED = (("fusedb", 1024), ("auto", 64), ("fusedl", 1))
+         ("fusedb", 1), ("fusedb", 8), ("nttf", 1024), ("nttf", 64), ("ntt", 64), ("ntts", 64))
+PROFILED = (("fusedb", 1024), ("nttf", 1024), ("auto", 64), ("fusedl", 1))
 SAMPLES_PER_CTA = 8  # Kernel B's kBT (csrc/blind_rotate_kernel.cu)
 IMAD_PER_CLK_PER_SM = 64  # Hopper's INT32 multiply-add lanes per SM
 
@@ -122,6 +127,22 @@ def device_busy(fn) -> tuple[float, list[tuple[str, float, int]]]:
     return sum(r[1] for r in rows), rows[:8]
 
 
+def dp4a_per_sample_step(p) -> int:
+    """Kernel D's __dp4a count per sample and step: per prime, the forward
+    transforms (2 byte planes of the table), the per-bin contraction and the
+    inverse transforms (4 byte-plane products each), four int8 products per
+    dp4a."""
+    from tfhe_tpu_torch.ops import ntt
+
+    plan = ntt.plan_for_params(p)
+    k1 = p.glwe_dimension + 1
+    rn2 = k1 * p.pbs_decomposer.levels * plan.n2
+    cln2 = k1 * plan.key_limbs * plan.n2
+    n1 = plan.n1
+    per_prime = 2 * rn2 * n1 * n1 + 4 * n1 * cln2 * rn2 + 4 * cln2 * n1 * n1
+    return len(ntt.PRIMES) * per_prime // 4
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("measure_torch: needs a CUDA card")
@@ -131,6 +152,7 @@ def main() -> int:
     from tfhe_tpu_torch.models import test_vector as mtv
     from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
     from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
+    from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
     from tfhe_tpu_torch.ops.torus import switch_modulus, to_torch_u32
 
     card = subprocess.run(
@@ -142,13 +164,26 @@ def main() -> int:
     p = tfhe.get_params("default_128")
     ck, sk = tfhe.keygen(p, torch.Generator().manual_seed(0), device=dev, bmmp=True)
     sk = tfhe.with_latency_key(sk)
+    res_keys = {}
+    for name, attach in (("with_ntt_key", tfhe.with_ntt_key),
+                         ("with_ntt_lhs_key", tfhe.with_ntt_lhs_key)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sk = attach(sk)
+        torch.cuda.synchronize()
+        res_keys[name] = {"s": time.perf_counter() - t0, "allocated_before_gib": before / 2**30,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"{name}: {res_keys[name]}")
     rng = np.random.default_rng(5)
     bits = rng.integers(0, 2, size=(2, max(KERNEL_B_BATCHES)), dtype=np.uint32)
     ca = tfhe.encrypt(ck, bits[0], torch.Generator().manual_seed(1))
     cb = tfhe.encrypt(ck, bits[1], torch.Generator().manual_seed(2))
     tv = to_torch_u32(mtv.gate_test_vector(p, "nand"), dev)
     res = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-           "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+           "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+           "ntt_keys": res_keys}
 
     def rotation_inputs(b):
         approx = switch_modulus(cb[:b] * 2 + ca[:b], p.log_q, p.log_degree + 1)
@@ -209,6 +244,34 @@ def main() -> int:
                                     "sm_mhz_min": clocks[0], "sm_mhz_max": clocks[-1]}
     log(f"Kernel C V=1 B=1 under nvidia-smi: {ms} ms per call, {len(samples)} samples, "
         f"SM clock {clocks[0]}-{clocks[-1]} MHz")
+
+    # Kernel D: the block-NTT whole scan over the same batches
+    for b in KERNEL_B_BATCHES:
+        acc0, a_hat = rotation_inputs(b)
+        t = event_rounds(lambda: nttk.blind_rotate_nttf(p, acc0, sk.bk_ntt_lhs, a_hat),
+                         3 if b >= 256 else 5)
+        res[f"kernelD_B{b}_ms"] = t
+        res[f"kernelD_B{b}_plan"] = dict(nttk.last_plan)
+        log(f"Kernel D B={b}: ms {t}, plan {nttk.last_plan}")
+    acc0, a_hat = rotation_inputs(1024)
+    ms, samples = sampled_clocks(
+        lambda: nttk.blind_rotate_nttf(p, acc0, sk.bk_ntt_lhs, a_hat), 3)
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no sample inside the Kernel D window")
+    clocks = sorted(x[0] for x in samples)
+    # one CTA holds samples_per_cta samples for all steps on one SM, and B=1024
+    # runs as ceil(ctas / SMs) waves of CTAs
+    plan = nttk.last_plan
+    waves = -(-plan["ctas"] // res["sms"])
+    dp4a_per_cta = plan["samples_per_cta"] * p.n * dp4a_per_sample_step(p)
+    per_sm = dp4a_per_cta * waves / (ms / 1e3)
+    res["kernelD_B1024_clocked"] = {
+        "ms_per_call": ms, "samples_mhz_w": samples, "sm_mhz_min": clocks[0],
+        "sm_mhz_max": clocks[-1], "dp4a_per_s_per_sm": per_sm,
+        "dp4a_per_clk_per_sm_at_max_and_min_clock": [per_sm / (c * 1e6)
+                                                     for c in (clocks[-1], clocks[0])]}
+    log(f"Kernel D B=1024 under nvidia-smi: {ms} ms per call, {len(samples)} samples, "
+        f"SM clock {clocks[0]}-{clocks[-1]} MHz, {per_sm:.6e} dp4a/s per busy SM")
 
     for impl, b in GATES:
         t = event_rounds(lambda: tfhe.gates.nand(sk, ca[:b], cb[:b], impl=impl),

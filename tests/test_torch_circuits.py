@@ -28,7 +28,7 @@ def env(request):
     jck, jsk = jtfhe.keygen(p, jax.random.key(21))
     tck, tsk = tkeys.keys_from_numpy(t_get_params(name), np.asarray(jck.lwe_sk),
                                      np.asarray(jck.glwe_sk), np.asarray(jsk.bk_u32),
-                                     np.asarray(jsk.ksk_u32))
+                                     np.asarray(jsk.ksk_u32), device="cpu")
     tsk = tkeys.with_latency_key(tsk)
     rng = np.random.default_rng(22)
     a = rng.integers(0, 1 << W, size=BATCH).astype(np.uint32)
@@ -93,7 +93,7 @@ def test_fusedl_adder_is_capped_by_wide_calls():
     """A W=8 add through fusedl carries 8*B ciphertexts per wide call: B=1
     fits the cap of 8, B=2 raises, as in the JAX package."""
     p = t_get_params("nano")
-    ck, sk = tkeys.keygen(p, 23)
+    ck, sk = tkeys.keygen(p, 23, device="cpu")
     sk = tkeys.with_latency_key(sk)
     a = tcirc.encrypt_uint(ck, [200], 8, 1)
     b = tcirc.encrypt_uint(ck, [100], 8, 2)

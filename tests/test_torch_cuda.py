@@ -12,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from tfhe_tpu_torch.ops import ntt
 from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
 from tfhe_tpu_torch.ops.cuda import ep_kernel as epk
 from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
+from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
 from tfhe_tpu_torch.ops.torus import to_torch_u32
 from tfhe_tpu_torch.params import get_params
 
@@ -131,3 +133,52 @@ def test_latency_kernel_refuses_unsupported_shapes_on_card(cuda_device):
     with pytest.raises(RuntimeError, match="invalid argument"):
         latk.blind_rotate_latency(p, acc0, bk_lat, a_vhat)
     assert latk.KERNEL.launches == before
+
+
+def nttf_inputs(p, batch, seed, device, steps=None):
+    """Random acc0, the lhs form of a random canonical key, and exponents
+    for Kernel D."""
+    k1, n = p.glwe_dimension + 1, p.degree
+    steps = steps or p.lwe_dimension
+    rng = np.random.default_rng(seed)
+    bk = to_torch_u32(rnd_u32(rng, (steps, k1 * p.pbs_decomposer.levels, k1, n)), device)
+    bk_lhs = ntt.ntt_key_lhs_form(ntt.make_ep_ntt_key(bk, ntt.plan_for_params(p)))
+    acc0 = to_torch_u32(rnd_u32(rng, (batch, k1, n)), device)
+    a_hat = torch.from_numpy(
+        rng.integers(0, 2 * n, size=(steps, batch), dtype=np.int32)).to(device)
+    return acc0, bk_lhs, a_hat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch,steps", [
+    ("nano", 3, None), ("test_insecure", 1, None), ("test_insecure", 7, None),
+    ("test_insecure", 64, None), ("test_insecure", 256, None), ("test_insecure", 1024, 2),
+    ("large_2048", 3, 2)])
+def test_nttf_kernel_matches_twin_on_card(cuda_device, name, batch, steps):
+    """Every samples-per-CTA instance (B=256 and 1024 take 2 and 4 on an
+    H100) and both key-limb counts (large_2048 has 4)."""
+    p = get_params(name)
+    acc0, bk_lhs, a_hat = nttf_inputs(p, batch, 80 + batch, cuda_device, steps)
+    before = nttk.KERNEL.launches
+    got = nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat)
+    torch.cuda.synchronize()
+    assert nttk.KERNEL.launches == before + 1
+    assert nttk.last_plan["samples_per_cta"] >= 1
+    assert torch.equal(got, nttk.blind_rotate_nttf_ref(p, acc0, bk_lhs, a_hat))
+
+
+@pytest.mark.cuda
+def test_nttf_kernel_refuses_unsupported_shapes_on_card(cuda_device):
+    """N1 = 256 is above the 128 the C entry point takes (its tables would
+    not fit shared memory): it returns cudaErrorInvalidValue, the wrapper
+    raises and counts no launch."""
+    p = get_params("test_insecure")
+    try:
+        ntt.set_plan_n1(256)
+        acc0, bk_lhs, a_hat = nttf_inputs(p, 2, 62, cuda_device)
+        before = nttk.KERNEL.launches
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat)
+        assert nttk.KERNEL.launches == before
+    finally:
+        ntt.set_plan_n1(None)

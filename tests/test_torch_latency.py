@@ -48,7 +48,7 @@ def port_keys(jck, jsk, name):
     return tkeys.keys_from_numpy(
         t_get_params(name), np.asarray(jck.lwe_sk), np.asarray(jck.glwe_sk),
         np.asarray(jsk.bk_u32), np.asarray(jsk.ksk_u32),
-        bk_bmmp_lm=np.asarray(jsk.bk_bmmp_lm))
+        bk_bmmp_lm=np.asarray(jsk.bk_bmmp_lm), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +119,8 @@ def test_keygen_without_bmmp_is_unchanged():
              sampling.uniform_u32(gen, (k * N * ks.levels, n)),
              sampling.gaussian_torus(gen, p.lwe_std_dev, (k * N * ks.levels,))]
     want = tkeys.make_server_key(p, *draws)
-    ck0, sk0 = tkeys.keygen(p, 12)
-    ck1, sk1 = tkeys.keygen(p, 12, bmmp=True)
+    ck0, sk0 = tkeys.keygen(p, 12, device="cpu")
+    ck1, sk1 = tkeys.keygen(p, 12, device="cpu", bmmp=True)
     assert torch.equal(ck0.lwe_sk, draws[0]) and torch.equal(ck0.glwe_sk, draws[1])
     for f in ("bk_u32", "bk_lm", "ksk_u32", "ksk_mat"):
         assert torch.equal(getattr(sk0, f), getattr(want, f)), f
@@ -183,7 +183,8 @@ def test_fusedl_matches_jax_conv_test_insecure():
     jck, jsk = jtfhe.keygen(p, jax.random.key(6))
     tp = t_get_params("test_insecure")
     _, tsk = tkeys.keys_from_numpy(tp, np.asarray(jck.lwe_sk), np.asarray(jck.glwe_sk),
-                                   np.asarray(jsk.bk_u32), np.asarray(jsk.ksk_u32))
+                                   np.asarray(jsk.bk_u32), np.asarray(jsk.ksk_u32),
+                                   device="cpu")
     tsk = tkeys.with_latency_key(tsk)
     rng = np.random.default_rng(78)
     approx = rng.integers(0, 2 * p.degree, size=(3, p.lwe_dimension + 1), dtype=np.uint32)
@@ -214,7 +215,7 @@ def test_latency_paths_refuse_what_they_do_not_serve(nano_env):
             tboot.blind_rotate(p, big[:2], no_bmmp, tv_t, impl=impl)
     odd = dataclasses.replace(p, lwe_dimension=5)
     with pytest.raises(ValueError, match="even"):
-        tkeys.keygen(odd, 0, bmmp=True)
+        tkeys.keygen(odd, 0, device="cpu", bmmp=True)
     with pytest.raises(ValueError, match="V=1"):  # the wrapper checks the cap too
         latk.blind_rotate_latency(p, torch.zeros((9, 2, p.degree), dtype=torch.int32),
                                   tsk.bk_lat, torch.zeros((4, 1, 9), dtype=torch.int32))

@@ -2,6 +2,8 @@
 keygen and encryption randomness injected from numpy into both (the fixture
 of tests/test_models.py).  Every comparison is bit-exact u32 equality."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ from tfhe_tpu_torch.models import ggsw as tggsw
 from tfhe_tpu_torch.models import glwe as tglwe
 from tfhe_tpu_torch.models import keyswitch as tks
 from tfhe_tpu_torch.models import lwe as tlwe
-from tfhe_tpu_torch.models.keys import ClientKey, keys_from_numpy, make_server_key
+from tfhe_tpu_torch.models.keys import ClientKey, keygen, keys_from_numpy, make_server_key
 from tfhe_tpu_torch.ops.torus import to_numpy_u32, to_torch_u32
 from tfhe_tpu_torch.params import get_params as t_get_params
 from tfhe_tpu_torch.utils import noise as tnoise
@@ -78,10 +80,32 @@ def test_make_server_key_matches(shared):
 def test_keys_from_numpy_matches_make_server_key(shared):
     d, jsk, tsk = shared
     ck, sk = keys_from_numpy(TP, d["lwe_sk"], d["glwe_sk"], np.asarray(jsk.bk_u32),
-                             np.asarray(jsk.ksk_u32))
+                             np.asarray(jsk.ksk_u32), device="cpu")
     for f in ("bk_u32", "bk_lm", "ksk_u32", "ksk_mat"):
         assert torch.equal(getattr(sk, f), getattr(tsk, f)), f
     assert same(ck.lwe_sk, d["lwe_sk"]) and same(ck.glwe_sk, d["glwe_sk"])
+
+
+def test_keys_default_to_the_card():
+    """keygen and keys_from_numpy put the keys on the card unless the caller
+    asks for another device.  Without a card, a call without ``device=``
+    raises torch's own error instead of carrying on on the CPU; with one,
+    the keys land there with the bits an int seed gives on the CPU."""
+    for fn in (keygen, keys_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    p = t_get_params("nano")
+    ck_cpu, sk_cpu = keygen(p, 0, device="cpu")
+    assert ck_cpu.device.type == "cpu" and sk_cpu.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            keygen(p, 0)
+        with pytest.raises((AssertionError, RuntimeError)):
+            keys_from_numpy(p, to_numpy_u32(ck_cpu.lwe_sk), to_numpy_u32(ck_cpu.glwe_sk),
+                            to_numpy_u32(sk_cpu.bk_u32), to_numpy_u32(sk_cpu.ksk_u32))
+        return
+    ck, sk = keygen(p, 0)
+    assert ck.device.type == "cuda" and sk.device.type == "cuda"
+    assert torch.equal(sk.bk_u32.cpu(), sk_cpu.bk_u32)
 
 
 def test_lwe_encrypt_decrypt(shared):

@@ -49,7 +49,7 @@ def insecure():
         gaussian_u32(rng, p.lwe_std_dev, (kn * p.ks_decomposer.levels,)))
     tp = ttfhe.get_params("test_insecure")
     tck, tsk = keys_from_numpy(tp, lwe_sk, glwe_sk, np.asarray(jsk.bk_u32),
-                               np.asarray(jsk.ksk_u32))
+                               np.asarray(jsk.ksk_u32), device="cpu")
     msgs = np.arange(4, dtype=np.uint32)
     cts = np.asarray(jlwe.encrypt(lwe_sk, g.lwe_encode(msgs, p), rnd_u32(rng, (4, n)),
                                   gaussian_u32(rng, p.lwe_std_dev, (4,))))
@@ -77,7 +77,7 @@ def test_pbs_fusedb_matches_jax_interpret_nano():
     want = jboot.pbs(p, cts, jsk, tv, impl="fusedb_interpret")
     tp = ttfhe.get_params("nano")
     tck, tsk = keys_from_numpy(tp, np.asarray(jck.lwe_sk), np.asarray(jck.glwe_sk),
-                               np.asarray(jsk.bk_u32), np.asarray(jsk.ksk_u32))
+                               np.asarray(jsk.bk_u32), np.asarray(jsk.ksk_u32), device="cpu")
     got = tboot.pbs(tp, to_torch_u32(np.asarray(cts)), tsk, to_torch_u32(np.asarray(tv)),
                     impl="fusedb")
     assert np.array_equal(to_numpy_u32(got), np.asarray(want))
@@ -86,7 +86,7 @@ def test_pbs_fusedb_matches_jax_interpret_nano():
 
 def test_gate_truth_tables_through_port():
     p = ttfhe.get_params("test_insecure")
-    ck, sk = ttfhe.keygen(p, torch.Generator().manual_seed(11))
+    ck, sk = ttfhe.keygen(p, torch.Generator().manual_seed(11), device="cpu")
     a = ttfhe.encrypt(ck, BITS_A, 1)
     b = ttfhe.encrypt(ck, BITS_B, 2)
     for name, fn in (("nand", ttfhe.gates.nand), ("and", ttfhe.gates.and_),
@@ -105,7 +105,7 @@ def test_jax_key_gives_same_gate_ciphertexts(insecure):
     want = np.asarray(jtfhe.gates.nand(jsk, a, b, impl="conv"))
     tck, tsk = keys_from_numpy(ttfhe.get_params("test_insecure"), np.asarray(jck.lwe_sk),
                                np.asarray(jck.glwe_sk), np.asarray(jsk.bk_u32),
-                               np.asarray(jsk.ksk_u32))
+                               np.asarray(jsk.ksk_u32), device="cpu")
     ta, tb = to_torch_u32(np.asarray(a)), to_torch_u32(np.asarray(b))
     for impl in ("matmul", "fused"):
         got = ttfhe.gates.nand(tsk, ta, tb, impl=impl)

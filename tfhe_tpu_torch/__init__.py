@@ -6,11 +6,15 @@ written as plain functions on torch tensors (u32 carried as wrapping int32,
 (``csrc/``, built at first use into ``build/tfhe_tpu_torch/``).  It imports
 neither JAX nor ``tfhe_tpu``.
 
+Entry points run on the card: ``keygen`` and ``keys_from_numpy`` put the
+keys on ``"cuda"`` unless the caller passes another ``device`` (the tests
+pass ``device="cpu"``, where every kernel wrapper runs its plain twin).
+
 Quick start::
 
-    import numpy as np, torch, tfhe_tpu_torch as tfhe
+    import numpy as np, tfhe_tpu_torch as tfhe
     params = tfhe.get_params("default_128")
-    ck, sk = tfhe.keygen(params, torch.Generator().manual_seed(0), device="cuda")
+    ck, sk = tfhe.keygen(params, 0)
     a = tfhe.encrypt(ck, np.array([1, 0, 1]), 1)
     b = tfhe.encrypt(ck, np.array([1, 1, 0]), 2)
     out = tfhe.gates.nand(sk, a, b)
@@ -18,12 +22,19 @@ Quick start::
 
 Small batches (B <= 8) take the latency kernel::
 
-    ck, sk = tfhe.keygen(params, torch.Generator().manual_seed(0), device="cuda", bmmp=True)
+    ck, sk = tfhe.keygen(params, 0, bmmp=True)
     sk = tfhe.with_latency_key(sk)
     out = tfhe.gates.nand(sk, a, b, impl="fusedl")      # or "bmmpl" (B <= 4)
     s = tfhe.circuits.add_uint(sk, tfhe.circuits.encrypt_uint(ck, [200], 8, 3),
                                tfhe.circuits.encrypt_uint(ck, [100], 8, 4), impl="fusedl")
     tfhe.circuits.decrypt_uint(ck, s)   # [44]
+
+The block-NTT tier: 'nttf' runs the whole rotation in Kernel D on the lhs-form
+NTT key, 'ntt' and 'ntts' are its plain per-step scans (resident and streamed
+key); all three equal 'fused' bit for bit::
+
+    sk = tfhe.with_ntt_lhs_key(tfhe.with_ntt_key(sk))   # 1.9 GB each at default_128
+    out = tfhe.gates.nand(sk, a, b, impl="nttf")        # or "ntt", "ntts"
 """
 
 from tfhe_tpu_torch.models import boolean as gates
@@ -36,6 +47,8 @@ from tfhe_tpu_torch.models.keys import (
     keys_from_numpy,
     make_server_key,
     with_latency_key,
+    with_ntt_key,
+    with_ntt_lhs_key,
 )
 from tfhe_tpu_torch.params import (
     DecomposerParams,
@@ -66,4 +79,6 @@ __all__ = [
     "keys_from_numpy",
     "make_server_key",
     "with_latency_key",
+    "with_ntt_key",
+    "with_ntt_lhs_key",
 ]

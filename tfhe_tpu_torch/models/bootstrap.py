@@ -24,6 +24,18 @@ Blind-rotation backends, all exact mod 2^32:
   * ``fusedl`` / ``bmmpl`` — the small-batch latency path (B <= 8, resp.
     B <= 4 for the BMMP form): the whole rotation in one launch of Kernel C
     (``ops/cuda/latency_kernel.py``), carry-chain digits.
+  * ``ntt`` / ``ntts`` — the block-NTT scan (``ops/ntt.py``): per step, one
+    NTT-domain contraction, against the resident ``ServerKey.bk_ntt``
+    (``with_ntt_key``) or, streaming, against each step's key transformed
+    from ``bk_u32`` inside the loop.  Plain PyTorch, as the JAX package runs
+    them through XLA.
+  * ``nttf`` — the whole block-NTT rotation in one launch of Kernel D
+    (``ops/cuda/ntt_kernel.py``) on ``ServerKey.bk_ntt_lhs``
+    (``with_ntt_lhs_key``), any batch in one launch.
+
+The block-NTT impls use the reference carry-chain digits, so 'ntt', 'ntts'
+and 'nttf' equal 'fused' bit for bit.  An impl whose key form is missing
+raises ``ValueError`` naming the function that attaches it.
 
 On CPU tensors the kernel backends run their kernels' plain twins.
 """
@@ -34,8 +46,10 @@ import torch
 
 from tfhe_tpu_torch.models import glwe as mglwe
 from tfhe_tpu_torch.models import keyswitch as mks
+from tfhe_tpu_torch.ops import ntt
 from tfhe_tpu_torch.ops.cuda.blind_rotate_kernel import blind_rotate_fused
 from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
+from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
 from tfhe_tpu_torch.ops.cuda.ep_kernel import ep_contract_rbn
 from tfhe_tpu_torch.ops.decomposer import decompose_signed_planes
 from tfhe_tpu_torch.ops.poly import ep_combine, ep_combine_planes, ep_contract_matmul, monomial_mul
@@ -43,7 +57,8 @@ from tfhe_tpu_torch.ops.torus import switch_modulus, u32
 from tfhe_tpu_torch.params import TfheParams
 
 #: every backend string ``blind_rotate`` accepts
-VALID_IMPLS = ("auto", "matmul", "pallas", "fused", "fusedb", "bmmp", "fusedl", "bmmpl")
+VALID_IMPLS = ("auto", "matmul", "pallas", "fused", "fusedb", "bmmp", "fusedl", "bmmpl",
+               "ntt", "ntts", "nttf")
 
 
 def resolve_impl(impl: str, device) -> str:
@@ -129,6 +144,23 @@ def rotate_chunk_pallas(params: TfheParams, acc, bk_lm_chunk, a_chunk) -> torch.
     return acc_t.transpose(0, 1).contiguous()
 
 
+def rotate_chunk_ntt(params: TfheParams, acc, bk_chunk, a_chunk, stream: bool = False):
+    """Block-NTT CMUX steps over a key chunk ([B, k+1, N] acc).  ``bk_chunk``
+    is a slice of ``ServerKey.bk_ntt``, or with ``stream=True`` of the
+    canonical ``bk_u32``, each step's rows then transformed inside the loop
+    (the transform is batch-independent, and the resident form is not needed:
+    at N >= 2048 it would not fit)."""
+    k1 = params.glwe_dimension + 1
+    plan = ntt.plan_for_params(params)
+    for bk_i, a_i in zip(bk_chunk, a_chunk):
+        if stream:
+            bk_i = ntt.make_ep_ntt_key(bk_i, plan)
+        rot = mglwe.mul_monomial(acc, a_i)
+        digits = mglwe.decompose(rot - acc, params.pbs_decomposer)  # [B, R, N]
+        acc = acc + ntt.ep_contract_ntt(digits, bk_i, plan, k1)
+    return acc
+
+
 def _bmmp_exponents(params: TfheParams, a_hat):
     """The BMMP pair exponents (a+a' mod 2N, a, a'), each int32[n/2, B]."""
     a0, a1 = a_hat[0::2], a_hat[1::2]
@@ -170,6 +202,12 @@ def _require_latency_key(bk_lat) -> torch.Tensor:
     return bk_lat
 
 
+def _require_ntt_key(bk, attach: str) -> torch.Tensor:
+    if bk is None:
+        raise ValueError(f"this impl needs an NTT key form: {attach}(server_key)")
+    return bk
+
+
 def blind_rotate(params: TfheParams, approx_ct, server_key, tv_encoded,
                  impl: str = "auto") -> torch.Tensor:
     """n-step CMUX loop (src/bootstrapping.rs:79-105); batched.
@@ -196,6 +234,14 @@ def blind_rotate(params: TfheParams, approx_ct, server_key, tv_encoded,
         return latk.blind_rotate_latency(params, acc0, bk_lat, a_v)
     if impl == "bmmp":
         return _blind_rotate_bmmp(params, acc0, server_key.bk_bmmp_lm, a_hat)
+    if impl == "nttf":
+        bk_lhs = _require_ntt_key(server_key.bk_ntt_lhs, "with_ntt_lhs_key")
+        return nttk.blind_rotate_nttf(params, acc0, bk_lhs, a_hat)
+    if impl == "ntt":
+        bk_ntt = _require_ntt_key(server_key.bk_ntt, "with_ntt_key")
+        return rotate_chunk_ntt(params, acc0, bk_ntt, a_hat)
+    if impl == "ntts":
+        return rotate_chunk_ntt(params, acc0, server_key.bk_u32, a_hat, stream=True)
     if impl == "pallas":
         return rotate_chunk_pallas(params, acc0, server_key.bk_lm, a_hat)
     return rotate_chunk_matmul(params, acc0, server_key.bk_u32, a_hat)

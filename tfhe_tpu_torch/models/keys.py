@@ -10,7 +10,12 @@ on one device:
   * ``ServerKey.ksk_mat`` — KSK as int8 limbs [kN*l_ks, (n+1)*4];
   * ``ServerKey.bk_bmmp_lm`` — optional BMMP key triples (``keygen(bmmp=True)``);
   * ``ServerKey.bk_lat`` / ``bk_bmmp_lat`` — optional latency-kernel key
-    operands, attached by ``with_latency_key``.
+    operands, attached by ``with_latency_key``;
+  * ``ServerKey.bk_ntt`` / ``bk_ntt_lhs`` — optional NTT-domain key forms for
+    the block-NTT impls, attached by ``with_ntt_key`` / ``with_ntt_lhs_key``.
+
+Keys land on the card (``device="cuda"``) unless the caller asks for another
+device.
 
 Key generation is split into a deterministic core with explicit mask/noise
 tensors (bit-comparable with the JAX package) and a sampling wrapper.
@@ -22,6 +27,7 @@ the same key.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -30,6 +36,8 @@ from tfhe_tpu_torch.models import ggsw as mggsw
 from tfhe_tpu_torch.models import glwe as mglwe
 from tfhe_tpu_torch.models import keyswitch as mks
 from tfhe_tpu_torch.ops import sampling
+from tfhe_tpu_torch.ops.cuda.ntt_kernel import lhs_key_shape
+from tfhe_tpu_torch.ops.ntt import make_ep_ntt_key, ntt_key_lhs_form, plan_for_params
 from tfhe_tpu_torch.ops.poly import level_major_row_perm
 from tfhe_tpu_torch.ops.torus import u32
 from tfhe_tpu_torch.params import TfheParams
@@ -70,6 +78,13 @@ class ServerKey:
     #: int8[steps, (k+1)*4, 4*G*N], attached by ``with_latency_key``
     bk_lat: torch.Tensor | None = None
     bk_bmmp_lat: torch.Tensor | None = None
+    #: optional NTT-domain key for impl='ntt' (``ops/ntt.py:make_ep_ntt_key``
+    #: of every step): int8[n, P, 2, N1, R*N2, C*L*N2], attached by
+    #: ``with_ntt_key``
+    bk_ntt: torch.Tensor | None = None
+    #: optional lhs form of it for impl='nttf' (Kernel D):
+    #: int8[n, P, N1, 2*C*L*N2, R*N2], attached by ``with_ntt_lhs_key``
+    bk_ntt_lhs: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -131,8 +146,9 @@ def make_server_key(params: TfheParams, lwe_sk, glwe_sk, bk_a, bk_e, ksk_a,
 
 
 def keys_from_numpy(params: TfheParams, lwe_sk, glwe_sk, bk_u32, ksk_u32,
-                    device=None, bk_bmmp_lm=None) -> tuple[ClientKey, ServerKey]:
-    """Build the port's keys from canonical u32 arrays (the JAX package's
+                    device="cuda", bk_bmmp_lm=None) -> tuple[ClientKey, ServerKey]:
+    """Build the port's keys on ``device`` (the card unless the caller asks
+    for another) from canonical u32 arrays (the JAX package's
     ``ClientKey``/``ServerKey`` fields, or its ``.npz`` wire format), with the
     JAX package's BMMP key ``bk_bmmp_lm`` when given."""
     ck = ClientKey(lwe_sk=u32(lwe_sk, device), glwe_sk=u32(glwe_sk, device),
@@ -157,20 +173,104 @@ def with_latency_key(sk: ServerKey) -> ServerKey:
                                bk_bmmp_lat=bk_bmmp_lat)
 
 
+#: device-memory budget for the NTT key forms, the JAX package's 12 GiB
+#: (``tfhe_tpu/models/keys.py:with_ntt_key``), checked against the peak of a
+#: build (``ntt_build_peak_bytes``)
+NTT_KEY_BUDGET_BYTES = 12 << 30
+#: steps per chunk when building an NTT key form (the JAX package's
+#: ``lax.map(batch_size=64)``), so the transients stay near one chunk
+_NTT_CHUNK_STEPS = 64
+#: a chunk's workspace, in multiples of the chunk's share of the form: the
+#: chunk's own output, its int16 residues and their byte planes
+#: (``ops/ntt.py:make_ep_ntt_key``).  Measured 3.82 at default_128 on an H100
+#: (``chip_smoke.py`` holds every build's peak against this count), rounded up
+_NTT_CHUNK_WORKSPACE = 5
+
+
+def ntt_form_bytes(params: TfheParams) -> int:
+    """Bytes of one whole-key NTT form (``bk_ntt`` or ``bk_ntt_lhs``)."""
+    return math.prod(lhs_key_shape(params, plan_for_params(params), params.lwe_dimension))
+
+
+def ntt_build_peak_bytes(sk: ServerKey) -> int:
+    """The device memory that building one more NTT key form on ``sk``
+    holds at its peak, beyond the canonical keys: every form ``sk`` already
+    holds (the caller's reference keeps them alive), the new form, and one
+    chunk's workspace."""
+    form = ntt_form_bytes(sk.params)
+    held = sum(getattr(sk, f) is not None for f in ("bk_ntt", "bk_ntt_lhs"))
+    n = sk.params.lwe_dimension
+    chunk = form * min(_NTT_CHUNK_STEPS, n) // n
+    return (held + 1) * form + _NTT_CHUNK_WORKSPACE * chunk
+
+
+def _check_ntt_budget(sk: ServerKey, what: str) -> None:
+    """Raise unless building ``what`` next to the forms ``sk`` holds stays
+    within ``NTT_KEY_BUDGET_BYTES`` at its peak."""
+    peak = ntt_build_peak_bytes(sk)
+    if peak > NTT_KEY_BUDGET_BYTES:
+        held = [f for f in ("bk_ntt", "bk_ntt_lhs") if getattr(sk, f) is not None]
+        form = ntt_form_bytes(sk.params)
+        raise ValueError(
+            f"building {what} next to {held or 'no other form'} peaks at "
+            f"{peak / 2**30:.2f} GiB ({len(held) + 1} NTT key form(s) of "
+            f"{form / 2**30:.2f} GiB and one chunk's workspace), over the "
+            f"{NTT_KEY_BUDGET_BYTES / 2**30:.2f} GiB budget; use impl='ntts', "
+            "drop the other form first, or a larger-N1 plan (ops.ntt.set_plan_n1)")
+
+
+def _build_in_chunks(src: torch.Tensor, fn, shape: tuple) -> torch.Tensor:
+    out = torch.empty(shape, dtype=torch.int8, device=src.device)
+    for lo in range(0, src.shape[0], _NTT_CHUNK_STEPS):
+        out[lo:lo + _NTT_CHUNK_STEPS] = fn(src[lo:lo + _NTT_CHUNK_STEPS])
+    return out
+
+
+def with_ntt_key(sk: ServerKey) -> ServerKey:
+    """Attach the NTT-domain key ``bk_ntt`` for ``impl='ntt'`` (and for
+    ``with_ntt_lhs_key`` to convert from), built once at key load from
+    ``bk_u32`` in chunks of steps (counterpart of
+    ``tfhe_tpu/models/keys.py:with_ntt_key``)."""
+    _check_ntt_budget(sk, "bk_ntt")
+    plan = plan_for_params(sk.params)
+    steps, primes, bins, two_cln2, rn2 = lhs_key_shape(sk.params, plan, sk.params.lwe_dimension)
+    shape = (steps, primes, 2, bins, rn2, two_cln2 // 2)
+    bk_ntt = _build_in_chunks(sk.bk_u32, lambda c: make_ep_ntt_key(c, plan), shape)
+    return dataclasses.replace(sk, bk_ntt=bk_ntt)
+
+
+def with_ntt_lhs_key(sk: ServerKey, drop_rhs: bool = False) -> ServerKey:
+    """Attach the lhs-form NTT key ``bk_ntt_lhs`` for ``impl='nttf'``
+    (Kernel D), built once at key load: a relayout of ``bk_ntt`` when the key
+    holds it, else straight from ``bk_u32`` per chunk without the other form.
+    ``drop_rhs=True`` leaves ``bk_ntt`` out of the returned key (it then
+    serves only 'nttf'); while converting, both forms are alive, and the
+    budget counts them."""
+    _check_ntt_budget(sk, "bk_ntt_lhs")
+    plan = plan_for_params(sk.params)
+    if sk.bk_ntt is not None:
+        src, fn = sk.bk_ntt, ntt_key_lhs_form
+    else:
+        src, fn = sk.bk_u32, lambda c: ntt_key_lhs_form(make_ep_ntt_key(c, plan))
+    lhs = _build_in_chunks(src, fn, lhs_key_shape(sk.params, plan, sk.params.lwe_dimension))
+    return dataclasses.replace(sk, bk_ntt_lhs=lhs, bk_ntt=None if drop_rhs else sk.bk_ntt)
+
+
 def keygen(params: TfheParams, generator: torch.Generator | int = 0,
-           device=None, bmmp: bool = False) -> tuple[ClientKey, ServerKey]:
+           device="cuda", bmmp: bool = False) -> tuple[ClientKey, ServerKey]:
     """Sample secret keys and derive the server key (src/utils.rs:238-243 +
     src/bootstrapping.rs:23-56).  Randomness comes from ``generator`` (or a
-    CPU generator seeded with the given int); the keys land on ``device``
-    (default: the generator's device).  ``bmmp=True`` also makes the BMMP key
-    triples for the halved-depth rotation; their masks and noise are drawn
-    after every other draw, so the other keys equal those of ``bmmp=False``."""
+    CPU generator seeded with the given int); the draws are moved to
+    ``device``, the card unless the caller asks for another, so one seed
+    gives the same key bits on every device.  ``bmmp=True`` also makes the
+    BMMP key triples for the halved-depth rotation; their masks and noise are
+    drawn after every other draw, so the other keys equal those of
+    ``bmmp=False``."""
     k, n, N = params.glwe_dimension, params.lwe_dimension, params.degree
     if bmmp and n % 2:
         raise ValueError(f"BMMP pairs secret bits; lwe_dimension must be even, got {n}")
     if isinstance(generator, int):
         generator = torch.Generator().manual_seed(generator)
-    device = generator.device if device is None else torch.device(device)
     dp, ks = params.pbs_decomposer, params.ks_decomposer
     rows = (k + 1) * dp.levels
     kn = k * N

@@ -1,0 +1,106 @@
+"""Kernel D: the whole-scan block-NTT blind rotation (counterpart of
+``tfhe_tpu/ops/pallas/ntt_kernel.py:blind_rotate_nttf``), serving
+``impl='nttf'``.
+
+The key is the lhs form of the NTT-domain key (``ops/ntt.py:ntt_key_lhs_form``,
+built once by ``models.keys.with_ntt_lhs_key``), the same bytes as the JAX
+package's.  The digits are the reference carry-chain digits (those of
+``impl='fused'``), and every residue is exact, so the result equals
+``impl='fused'`` bit for bit.
+
+``blind_rotate_nttf`` launches ``csrc/ntt_kernel.cu`` for CUDA tensors and
+runs its plain twin ``blind_rotate_nttf_ref`` for CPU tensors; it raises for
+anything else.  Kernel D keeps no batch-sized state beyond its CTAs' shared
+memory, so unlike the TPU kernel (1536 samples per call, a VMEM limit) it
+takes any batch in one launch.  u32 values are int32 tensors (see
+``ops/torus.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tfhe_tpu_torch.ops import ntt
+from tfhe_tpu_torch.ops.cuda._build import CudaKernel, check_cuda_operand, ptr, stream_of
+from tfhe_tpu_torch.ops.decomposer import decompose_signed_planes
+from tfhe_tpu_torch.ops.poly import monomial_mul
+from tfhe_tpu_torch.params import TfheParams
+
+KERNEL = CudaKernel(
+    "ntt_kernel", "blind_rotate_nttf",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int),
+                                                    ctypes.c_void_p],
+)
+#: the launch plan of the last launch: samples per CTA, threads per CTA,
+#: dynamic shared memory bytes and CTAs
+last_plan: dict = {}
+
+
+def lhs_key_shape(params: TfheParams, plan: ntt.NttPlan, steps: int) -> tuple:
+    """The shape of the lhs-form key: [steps, P, N1, 2*C*L*N2, R*N2]."""
+    k1 = params.glwe_dimension + 1
+    rn2 = k1 * params.pbs_decomposer.levels * plan.n2
+    return (steps, len(ntt.PRIMES), plan.n1, 2 * k1 * plan.key_limbs * plan.n2, rn2)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables(n1: int, device: torch.device) -> torch.Tensor:
+    """int8[P, 4, N1, N1]: per prime the balanced bytes (hi, lo) of w_fwd
+    transposed ([bin][i]) and of w_inv transposed ([i][bin]), built once per
+    device."""
+    planes = []
+    for t in ntt._tables(n1):
+        for name in ("w_fwd", "w_inv"):
+            planes.extend(ntt.split2_i8(torch.from_numpy(t[name]).T.contiguous()))
+    return torch.stack(planes).reshape(len(ntt.PRIMES), 4, n1, n1).to(device)
+
+
+def blind_rotate_nttf_ref(params: TfheParams, acc0: torch.Tensor, bk_lhs: torch.Tensor,
+                          a_hat: torch.Tensor) -> torch.Tensor:
+    """Plain twin.  Per step: rotate, take the reference carry-chain digits
+    in canonical row order (poly*levels + level), contract them with
+    ``ep_contract_ntt`` against the step's key in the form ``make_ep_ntt_key``
+    gives, and add the result to the accumulator."""
+    dp = params.pbs_decomposer
+    plan = ntt.plan_for_params(params)
+    b, k1, n = acc0.shape
+    acc = acc0
+    for s in range(bk_lhs.shape[0]):
+        rot = monomial_mul(acc, a_hat[s][:, None])
+        digits = decompose_signed_planes(rot - acc, dp)  # [levels, B, k+1, N]
+        digits = digits.permute(1, 2, 0, 3).reshape(b, k1 * dp.levels, n)
+        acc = acc + ntt.ep_contract_ntt(digits, ntt.ntt_key_rhs_form(bk_lhs[s]), plan, k1)
+    return acc
+
+
+def blind_rotate_nttf(params: TfheParams, acc0: torch.Tensor, bk_lhs: torch.Tensor,
+                      a_hat: torch.Tensor) -> torch.Tensor:
+    """acc0 u32[B, k+1, N]; bk_lhs int8[n, P, N1, 2*CLN2, RN2]
+    (``ServerKey.bk_ntt_lhs``); a_hat int32[n, B] -> the final accumulator
+    u32[B, k+1, N]."""
+    if all(t.device.type == "cpu" for t in (acc0, bk_lhs, a_hat)):
+        return blind_rotate_nttf_ref(params, acc0, bk_lhs, a_hat)
+    device = acc0.device
+    if device.type != "cuda":
+        raise ValueError(f"blind_rotate_nttf runs on CPU or CUDA tensors, got {device}")
+    b, k1, n = acc0.shape
+    steps = bk_lhs.shape[0]
+    dp = params.pbs_decomposer
+    plan = ntt.plan_for_params(params)
+    check_cuda_operand("acc0", acc0, torch.int32, (b, k1, n), device)
+    check_cuda_operand("bk_lhs", bk_lhs, torch.int8, lhs_key_shape(params, plan, steps), device)
+    check_cuda_operand("a_hat", a_hat, torch.int32, (steps, b), device)
+    if bk_lhs.data_ptr() % 16:
+        raise ValueError("bk_lhs must be 16-byte aligned")
+    tables = kernel_tables(plan.n1, device)
+    out = torch.empty_like(acc0)
+    info = (ctypes.c_int * 4)()
+    KERNEL.launch(ptr(acc0), ptr(bk_lhs), ptr(a_hat), ptr(tables), ptr(out), steps, b, k1, n,
+                  dp.levels, dp.log_base, dp.ignored_bits, plan.n1, plan.key_bits,
+                  plan.key_limbs, info, stream_of(out))
+    last_plan.update(samples_per_cta=info[0], threads=info[1], smem_bytes=info[2],
+                     ctas=info[3])
+    return out
