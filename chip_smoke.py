@@ -14,8 +14,10 @@ failure, so the script exits nonzero and prints no result line.
   2. hold each kernel against its plain PyTorch twin (``torch.equal``) at
      nano, test_insecure and a 16-step slice of the default_128 key (Kernel C
      in both forms: V=1 and the BMMP V=3; Kernel D also on an all-ones
-     canonical key, the key side of its CRT range at its bound);
-  3. four paths at default_128 through the public API (keygen with the BMMP
+     canonical key, the key side of its CRT range at its bound; Kernel B at
+     key_limbs=3 and Kernels E, F and G in all their modes, also on a key
+     whose every low byte is 0x80, the truncated key's hard case);
+  3. five paths at default_128 through the public API (keygen with the BMMP
      key, the latency key and both NTT key forms, whose seconds and peak
      device memory it prints; encrypt, NAND, decrypt), each with the launch
      counters set to 0 just before it and read just after:
@@ -27,7 +29,12 @@ failure, so the script exits nonzero and prints no result line.
        - bmmp: the BMMP scan at B=64 (Kernel A at 3R rows); 'bmmpl' must
          equal its rows;
        - block-NTT: 'nttf' (Kernel D) at B=1024 and the plain scans 'ntt' and
-         'ntts' at B=64; each must equal the 'fused' rows.
+         'ntts' at B=64; each must equal the 'fused' rows;
+       - whole-scan variants: 'fused3', 'fusedb3' (Kernel B, truncated key),
+         'fusedp', 'fusedp3' (Kernel E), 'fusedw', 'fusedwb' (Kernel F),
+         'fusedc', 'fusedc3' (Kernel G) at B=1024; 'fusedp', 'fusedc' and
+         'fusedw' must equal the 'fused' rows, 'fusedwb' the 'fusedb' rows,
+         'fusedp3' and 'fusedc3' the 'fused3' rows.
      Every gate needs 0 errors and a noise margin below 0.5, the add must be
      right, and each path must have launched its kernels;
   4. time 'fusedb' at B=1024 with CUDA events, with the SM clock sampled by
@@ -36,7 +43,10 @@ failure, so the script exits nonzero and prints no result line.
      and at the bmmp scan's 3R rows), then the small-batch gates, the 8-bit
      add, Kernel C against its twin at B=1, B=8 (V=1) and B=4 (V=3), then
      the 'nttf' gate at B=1024 with the SM clock sampled, Kernel D against
-     its twin at [B=1024, 722 steps], and the 'ntt' and 'ntts' gates at B=64.
+     its twin at [B=1024, 722 steps], and the 'ntt' and 'ntts' gates at B=64,
+     then the eight whole-scan variant gates at B=1024, and Kernel B at
+     key_limbs=3 and Kernels E, F and G, each timed with the SM clock
+     sampled and held against its twin at [B=1024, 722 steps].
 
 The line before the last is the kernels' JSON record, each kernel with its
 bound: the larger of its operations (int8 multiply-adds as the TPU kernel
@@ -236,6 +246,53 @@ def phase2_nttf(nttk, ntt, get_params, to_torch_u32, params, sk, dev) -> None:
     torch.cuda.synchronize()
 
 
+#: the whole-scan variants: impl -> (wrapper name, options); their twins are
+#: the wrapper name + "_ref"
+WHOLE_SCAN = {
+    "fused3": ("blind_rotate_fused", {"key_limbs": 3}),
+    "fusedb3": ("blind_rotate_fused", {"key_limbs": 3, "balanced": True}),
+    "fusedp": ("blind_rotate_fused_pipe", {}),
+    "fusedp3": ("blind_rotate_fused_pipe", {"key_limbs": 3}),
+    "fusedw": ("blind_rotate_fused_wide_pipe", {}),
+    "fusedwb": ("blind_rotate_fused_wide_pipe", {"balanced": True}),
+    "fusedc": ("blind_rotate_fused_cols", {}),
+    "fusedc3": ("blind_rotate_fused_cols", {"key_limbs": 3}),
+}
+
+
+def phase2_whole_scan(brk, get_params, to_torch_u32, params, sk, dev) -> None:
+    """Kernel B at key_limbs=3 and Kernels E, F and G against their twins in
+    every mode: random keys at nano and test_insecure, the same with every
+    low byte 0x80 (the truncated key's hard case), and a 16-step slice of
+    the default_128 key."""
+    rng = np.random.default_rng(7)
+    cases = [(name, b, "random") for name, bs in (("nano", (1, 3, 8)),
+                                                   ("test_insecure", (1, 7, 64))) for b in bs]
+    cases += [("nano", 3, "low-0x80"), ("test_insecure", 7, "low-0x80"),
+              (params.name, 32, "slice")]
+    for name, b, kind in cases:
+        p = get_params(name)
+        k1, n = p.glwe_dimension + 1, p.degree
+        if kind == "slice":
+            bk = sk.bk_u32[:SLICE_STEPS]
+        else:
+            words = rnd_u32(rng, (p.lwe_dimension, k1 * p.pbs_decomposer.levels, k1, n))
+            if kind == "low-0x80":
+                words = (words & np.uint32(0xFFFFFF00)) | np.uint32(0x80)
+            bk = to_torch_u32(words, dev)
+        steps = bk.shape[0]
+        acc0 = to_torch_u32(rnd_u32(rng, (b, k1, n)), dev)
+        a_hat = torch.from_numpy(rng.integers(0, 2 * n, size=(steps, b), dtype=np.int32)).to(dev)
+        for impl, (fn, options) in WHOLE_SCAN.items():
+            got = getattr(brk, fn)(p, acc0, bk, a_hat, **options)
+            want = getattr(brk, fn + "_ref")(p, acc0, bk, a_hat, **options)
+            require(torch.equal(got, want),
+                    f"{fn} ({impl}) != twin at {name} B={b} steps={steps} ({kind} key)")
+        log(f"  whole-scan variants {kind:8s} {name:13s} B={b:<4d} steps={steps:<3d} all 8 "
+            f"equal; plans {brk.last_plan}")
+    torch.cuda.synchronize()
+
+
 def drive(kernels, fn):
     """Run ``fn()`` with every launch counter set to 0 just before it; return
     its result and the counts read just after it."""
@@ -274,12 +331,18 @@ def main() -> int:
     from tfhe_tpu_torch.ops import ntt
     from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
     from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
+    from tfhe_tpu_torch.ops.cuda._build import smem_budget
     from tfhe_tpu_torch.ops.torus import switch_modulus, to_numpy_u32, to_torch_u32
     from tfhe_tpu_torch.utils import noise
 
     dev = torch.device("cuda")
-    kernels = (epk.KERNEL, brk.KERNEL, latk.KERNEL, nttk.KERNEL)
+    kernels = (epk.KERNEL, brk.KERNEL, latk.KERNEL, nttk.KERNEL, brk.PIPE_KERNEL,
+               brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL)
     phase1(kernels)
+    t0 = time.perf_counter()
+    budget = smem_budget(dev)
+    budget_us = (time.perf_counter() - t0) * 1e6
+    log(f"shared-memory budget (opt-in per block): {budget} bytes, read in {budget_us:.1f} us")
 
     params = tfhe.get_params("default_128")
     t0 = time.perf_counter()
@@ -308,6 +371,7 @@ def main() -> int:
     phase2(epk, brk, tfhe.get_params, to_torch_u32, params, sk, dev)
     phase2_latency(latk, tfhe.get_params, to_torch_u32, params, sk, dev)
     phase2_nttf(nttk, ntt, tfhe.get_params, to_torch_u32, params, sk, dev)
+    phase2_whole_scan(brk, tfhe.get_params, to_torch_u32, params, sk, dev)
 
     log(f"phase 3: main paths, {params.name} NAND")
     rng = np.random.default_rng(3)
@@ -325,6 +389,7 @@ def main() -> int:
         "fused": nand("fused", MAIN_B), "fusedb": nand("fusedb", MAIN_B),
         "auto": nand("auto", AUTO_B)})
     check_gates(tfhe, noise, to_numpy_u32, ck, outs, want)
+    outs_tp = outs
     require(torch.equal(outs["auto"], outs["fused"][:AUTO_B]),
             "auto (pallas, Kernel A) output differs from the fused (Kernel B) rows")
     log(f"  auto (pallas) == fused[:{AUTO_B}] bit for bit; launches: {launches}")
@@ -370,6 +435,20 @@ def main() -> int:
     log(f"  nttf == fused, ntt == ntts == fused[:{NTT_B}] bit for bit; launches: {ntt_launches}")
     require(ntt_launches["blind_rotate_nttf"] > 0,
             f"Kernel D was not launched on the block-NTT path: {ntt_launches}")
+    log(f"  whole-scan variants path: {', '.join(WHOLE_SCAN)} at B={MAIN_B}")
+    ws_outs, ws_launches = drive(kernels, lambda: {
+        impl: nand(impl, MAIN_B) for impl in WHOLE_SCAN})
+    check_gates(tfhe, noise, to_numpy_u32, ck, ws_outs, want)
+    same_as = {"fusedp": fused_rows, "fusedc": fused_rows, "fusedw": fused_rows,
+               "fusedwb": outs_tp["fusedb"], "fusedp3": ws_outs["fused3"],
+               "fusedc3": ws_outs["fused3"]}
+    for impl, rows in same_as.items():
+        require(torch.equal(ws_outs[impl], rows), f"{impl} output differs from its partner rows")
+    log(f"  fusedp == fusedc == fusedw == fused, fusedwb == fusedb, fusedp3 == fusedc3 == fused3 "
+        f"bit for bit; launches: {ws_launches}; plans {brk.last_plan}")
+    for k in (brk.KERNEL, brk.PIPE_KERNEL, brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL):
+        require(ws_launches[k.symbol] > 0,
+                f"{k.symbol} was not launched on the whole-scan variants path: {ws_launches}")
     for k, v in lat_launches.items():
         launches[k] += v + bmmp_launches[k] + ntt_launches[k]
 
@@ -490,6 +569,34 @@ def main() -> int:
         ms = cuda_ms(lambda: nand(impl, NTT_B), 2)
         log(f"  gate {impl:6s} B={NTT_B:<3d} {ms:.3f} ms; card: {card}")
 
+    log(f"phase 4: whole-scan variants at B={MAIN_B} (CUDA events)")
+    for impl in WHOLE_SCAN:
+        ms = cuda_ms(lambda: nand(impl, MAIN_B), 1)
+        log(f"  gate {impl:7s} B={MAIN_B} {ms:.3f} ms, {MAIN_B / (ms / 1e3):.1f} gate "
+            f"bootstraps/s; card: {card}")
+    ws = {}  # record name -> (ms, plain ms, max_abs_err, key limbs)
+    for name, impl in (("blind_rotate_fused_k3", "fusedb3"), ("blind_rotate_fused_pipe", "fusedp"),
+                       ("blind_rotate_fused_wide_pipe", "fusedwb"),
+                       ("blind_rotate_fused_cols", "fusedc")):
+        fn, options = WHOLE_SCAN[impl]
+        rotate, twin = getattr(brk, fn), getattr(brk, fn + "_ref")
+        ms, clocked = sampled_clocks(lambda: rotate(params, acc0, sk.bk_u32, a_hat, **options), 2)
+        mhz = sorted(c for c, _ in clocked) or [float("nan")]
+        plan = dict(brk.last_plan[fn])
+        got = rotate(params, acc0, sk.bk_u32, a_hat, **options)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = twin(params, acc0, sk.bk_u32, a_hat, **options)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        ws[name] = (ms, plain_ms, err, options.get("key_limbs", 4))
+        log(f"  {fn} ({impl}) [B={MAIN_B}, n={params.n}]: kernel {ms:.2f} ms (mean of 2 back "
+            f"to back), plain {plain_ms:.2f} ms, max_abs_err {err}; SM clock {len(clocked)} "
+            f"samples, {mhz[0]}-{mhz[-1]} MHz; plan {plan}; card: {card}")
+    require(all(e == 0 for _, _, e, _ in ws.values()),
+            "a whole-scan kernel disagrees with its twin at the main path's shape")
+
     # bounds at the shapes the timings above ran
     k1, n = params.k + 1, params.degree
     r = k1 * params.pbs_decomposer.levels
@@ -531,6 +638,21 @@ def main() -> int:
          "ms": nd_ms, "plain_ms": nd_plain_ms, "bound_ms": nd_bound[0],
          "bound_by": nd_bound[1], "library_ms": None},
     ]}
+    # the whole-scan variants: Kernel B at key_limbs=3 (its launches on the
+    # variants path are fused3's and fusedb3's), Kernels E, F and G
+    for name, symbol, source, line in (
+            ("blind_rotate_fused_k3", "blind_rotate_fused", "blind_rotate_kernel", 862),
+            ("blind_rotate_fused_pipe", "blind_rotate_fused_pipe", "pipe_kernel", 793),
+            ("blind_rotate_fused_wide_pipe", "blind_rotate_fused_wide_pipe",
+             "wide_pipe_kernel", 723),
+            ("blind_rotate_fused_cols", "blind_rotate_fused_cols", "cols_kernel", 664)):
+        ms, plain_ms, err, key_limbs = ws[name]
+        b = bound(r * n * k1 * n * key_limbs * steps * MAIN_B, acc_bytes + nbytes(sk.bk_u32))
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": f"tfhe_tpu_torch/csrc/{source}.cu",
+            "replaces": f"tfhe_tpu/ops/pallas/blind_rotate_kernel.py:{line}",
+            "launches": ws_launches[symbol], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

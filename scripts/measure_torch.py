@@ -18,6 +18,9 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
   * Kernel D (``blind_rotate_nttf``) alone at B = 8 .. 2048, with its launch
     plan, and the SM clock while it runs at B=1024, and from them the dp4a
     per clock per busy SM;
+  * Kernels E, F and G (``blind_rotate_fused_pipe``, ``_wide_pipe``,
+    ``_cols``) alone at B = 8 .. 2048 and Kernel B at key_limbs=3 at
+    B=1024, with their launch plans;
   * one NAND gate per impl: fusedb, fused and nttf at B=1024, auto (Kernel A)
     at B=64 and B=1024, matmul (plain) at B=64, the small-batch impls
     fusedl, bmmpl, bmmp and fusedb at B <= 64, and nttf, ntt and ntts at B=64;
@@ -47,9 +50,14 @@ OUT = ROOT / "chiprun_out" / "measure_torch.json"
 KERNEL_B_BATCHES = (8, 64, 256, 512, 1024, 2048)
 GATES = (("fusedb", 1024), ("fused", 1024), ("auto", 64), ("auto", 1024), ("matmul", 64),
          ("fusedl", 1), ("fusedl", 8), ("bmmpl", 1), ("bmmpl", 4), ("bmmp", 64),
-         ("fusedb", 1), ("fusedb", 8), ("nttf", 1024), ("nttf", 64), ("ntt", 64), ("ntts", 64))
+         ("fusedb", 1), ("fusedb", 8), ("nttf", 1024), ("nttf", 64), ("ntt", 64), ("ntts", 64),
+         ("fusedb3", 1024), ("fusedp", 1024), ("fusedwb", 1024), ("fusedc", 1024))
+#: the whole-scan schedule kernels swept over KERNEL_B_BATCHES: name, wrapper
+#: and options
+SCHEDULES = (("kernelE_fusedp", "blind_rotate_fused_pipe", {}),
+             ("kernelF_fusedwb", "blind_rotate_fused_wide_pipe", {"balanced": True}),
+             ("kernelG_fusedc", "blind_rotate_fused_cols", {}))
 PROFILED = (("fusedb", 1024), ("nttf", 1024), ("auto", 64), ("fusedl", 1))
-SAMPLES_PER_CTA = 8  # Kernel B's kBT (csrc/blind_rotate_kernel.cu)
 IMAD_PER_CLK_PER_SM = 64  # Hopper's INT32 multiply-add lanes per SM
 
 
@@ -199,14 +207,15 @@ def main() -> int:
             res[f"kernelB_{mode}_B{b}_ms"] = t
             log(f"Kernel B {mode} B={b}: ms {t}")
 
-    # SM clock during Kernel B: one CTA holds SAMPLES_PER_CTA samples for all
-    # steps on one SM, so the multiply-add rate per busy SM is that CTA's work
-    # over the kernel's time.
+    # SM clock during Kernel B: one CTA holds its samples for all steps on one
+    # SM, so the multiply-add rate per busy SM is that CTA's work over the
+    # kernel's time.
     acc0, a_hat = rotation_inputs(1024)
     ms, samples = sampled_clocks(
         lambda: brk.blind_rotate_fused(p, acc0, sk.bk_u32, a_hat, True), 3)
     k1, n = p.k + 1, p.degree
-    imad_per_cta = SAMPLES_PER_CTA * p.n * (k1 * p.pbs_decomposer.levels) * n * k1 * n
+    spc = brk.last_plan["blind_rotate_fused"]["samples_per_cta"]
+    imad_per_cta = spc * p.n * (k1 * p.pbs_decomposer.levels) * n * k1 * n
     per_sm_rate = imad_per_cta / (ms / 1e3)
     clocked = {"ms_per_call": ms, "samples_mhz_w": samples, "imad_per_s_per_sm": per_sm_rate}
     if not samples:
@@ -272,6 +281,21 @@ def main() -> int:
                                                      for c in (clocks[-1], clocks[0])]}
     log(f"Kernel D B=1024 under nvidia-smi: {ms} ms per call, {len(samples)} samples, "
         f"SM clock {clocks[0]}-{clocks[-1]} MHz, {per_sm:.6e} dp4a/s per busy SM")
+
+    # Kernels E, F and G over the same batches, and Kernel B at key_limbs=3
+    for b in KERNEL_B_BATCHES:
+        acc0, a_hat = rotation_inputs(b)
+        for name, fn, options in SCHEDULES:
+            rotate = getattr(brk, fn)
+            t = event_rounds(lambda: rotate(p, acc0, sk.bk_u32, a_hat, **options),
+                             2 if b >= 256 else 3)
+            res[f"{name}_B{b}_ms"] = t
+            res[f"{name}_B{b}_plan"] = dict(brk.last_plan[fn])
+            log(f"{name} B={b}: ms {t}, plan {brk.last_plan[fn]}")
+    acc0, a_hat = rotation_inputs(1024)
+    t = event_rounds(lambda: brk.blind_rotate_fused(p, acc0, sk.bk_u32, a_hat, True, 3), 3)
+    res["kernelB_fusedb3_B1024_ms"] = t
+    log(f"Kernel B fusedb3 (key_limbs=3) B=1024: ms {t}")
 
     for impl, b in GATES:
         t = event_rounds(lambda: tfhe.gates.nand(sk, ca[:b], cb[:b], impl=impl),

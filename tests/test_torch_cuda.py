@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tfhe_tpu_torch.ops import ntt
+from tfhe_tpu_torch.ops.cuda import _build
 from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
 from tfhe_tpu_torch.ops.cuda import ep_kernel as epk
 from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
@@ -182,3 +183,112 @@ def test_nttf_kernel_refuses_unsupported_shapes_on_card(cuda_device):
         assert nttk.KERNEL.launches == before
     finally:
         ntt.set_plan_n1(None)
+
+
+#: the whole-scan variants: impl -> (wrapper, twin, options, kernel)
+WHOLE_SCAN = {
+    "fused3": (brk.blind_rotate_fused, brk.blind_rotate_fused_ref, {"key_limbs": 3},
+               brk.KERNEL),
+    "fusedb3": (brk.blind_rotate_fused, brk.blind_rotate_fused_ref,
+                {"key_limbs": 3, "balanced": True}, brk.KERNEL),
+    "fusedp": (brk.blind_rotate_fused_pipe, brk.blind_rotate_fused_pipe_ref, {},
+               brk.PIPE_KERNEL),
+    "fusedp3": (brk.blind_rotate_fused_pipe, brk.blind_rotate_fused_pipe_ref, {"key_limbs": 3},
+                brk.PIPE_KERNEL),
+    "fusedw": (brk.blind_rotate_fused_wide_pipe, brk.blind_rotate_fused_wide_pipe_ref, {},
+               brk.WIDE_PIPE_KERNEL),
+    "fusedwb": (brk.blind_rotate_fused_wide_pipe, brk.blind_rotate_fused_wide_pipe_ref,
+                {"balanced": True}, brk.WIDE_PIPE_KERNEL),
+    "fusedc": (brk.blind_rotate_fused_cols, brk.blind_rotate_fused_cols_ref, {},
+               brk.COLS_KERNEL),
+    "fusedc3": (brk.blind_rotate_fused_cols, brk.blind_rotate_fused_cols_ref, {"key_limbs": 3},
+                brk.COLS_KERNEL),
+}
+
+
+def kind_of(kernel):
+    """The ``smem_bytes`` kind of a whole-scan kernel: its symbol's suffix."""
+    return kernel.symbol.removeprefix("blind_rotate_fused").lstrip("_") or "fused"
+
+
+def whole_scan_inputs(p, batch, seed, device, steps=None):
+    """Random acc0 and exponents, and a key with a quarter of its words given
+    the low byte 0x80 (where the truncated key is easiest to get wrong)."""
+    k1, n = p.glwe_dimension + 1, p.degree
+    steps = steps or p.lwe_dimension
+    rng = np.random.default_rng(seed)
+    bk = rnd_u32(rng, (steps, k1 * p.pbs_decomposer.levels, k1, n))
+    flat = bk.reshape(-1)
+    idx = rng.choice(flat.size, size=flat.size // 4, replace=False)
+    flat[idx] = (flat[idx] & np.uint32(0xFFFFFF00)) | np.uint32(0x80)
+    acc0 = to_torch_u32(rnd_u32(rng, (batch, k1, n)), device)
+    a_hat = torch.from_numpy(
+        rng.integers(0, 2 * n, size=(steps, batch), dtype=np.int32)).to(device)
+    return acc0, to_torch_u32(bk, device), a_hat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", list(WHOLE_SCAN))
+@pytest.mark.parametrize("name,batch", [("nano", 3), ("test_insecure", 7)])
+def test_whole_scan_kernels_match_twins_on_card(cuda_device, impl, name, batch):
+    """Kernel B at key_limbs=3 and Kernels E, F and G, each launched once."""
+    fn, twin, options, kernel = WHOLE_SCAN[impl]
+    p = get_params(name)
+    acc0, bk, a_hat = whole_scan_inputs(p, batch, 90 + batch, cuda_device)
+    before = kernel.launches
+    got = fn(p, acc0, bk, a_hat, **options)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    spc = _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind_of(kernel), p, s),
+                                      _build.smem_budget(cuda_device))
+    assert brk.last_plan[kernel.symbol]["samples_per_cta"] == spc
+    # the wrapper sizes the shared memory as the C entry point does
+    assert brk.last_plan[kernel.symbol]["smem_bytes"] == brk.smem_bytes(kind_of(kernel), p, spc)
+    assert torch.equal(got, twin(p, acc0, bk, a_hat, **options))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["fused3", "fusedp", "fusedw", "fusedc"])
+def test_whole_scan_kernels_refuse_shapes_over_the_budget_on_card(cuda_device, monkeypatch,
+                                                                  impl):
+    """A shape whose one sample passes the card's shared-memory budget raises
+    ValueError before any launch, and the twin does not stand in: at
+    test_insecure against a budget one byte short of one sample, and for
+    Kernel F also at large_2048, where its two key blocks alone pass the
+    H100's real budget."""
+    fn, _, options, kernel = WHOLE_SCAN[impl]
+    for name in ("blind_rotate_fused_ref", "blind_rotate_fused_pipe_ref",
+                 "blind_rotate_fused_wide_pipe_ref", "blind_rotate_fused_cols_ref"):
+        monkeypatch.setattr(brk, name, lambda *a, **k: pytest.fail("the twin ran"))
+    kind = kind_of(kernel)
+    p = get_params("test_insecure")
+    acc0, bk, a_hat = whole_scan_inputs(p, 2, 63, cuda_device, steps=1)
+    before = kernel.launches
+    with monkeypatch.context() as m:
+        m.setattr(brk, "smem_budget", lambda device: brk.smem_bytes(kind, p, 1) - 1)
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(p, acc0, bk, a_hat, **options)
+    if impl == "fusedw":
+        big = get_params("large_2048")
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(big, *whole_scan_inputs(big, 1, 64, cuda_device, steps=1), **options)
+    assert kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spc", [1, 2, 4])
+@pytest.mark.parametrize("impl", ["fused3", "fusedp", "fusedwb", "fusedc"])
+def test_whole_scan_kernels_match_twins_at_fewer_samples_per_cta_on_card(
+        cuda_device, monkeypatch, impl, spc):
+    """The samples-per-CTA instances the H100's budget does not pick at these
+    widths: a budget of exactly S samples' shared memory makes the wrapper
+    pick S (B=5 leaves the last CTA part-filled)."""
+    fn, twin, options, kernel = WHOLE_SCAN[impl]
+    p = get_params("test_insecure")
+    kind = kind_of(kernel)
+    monkeypatch.setattr(brk, "smem_budget", lambda device: brk.smem_bytes(kind, p, spc))
+    acc0, bk, a_hat = whole_scan_inputs(p, 5, 110 + spc, cuda_device)
+    got = fn(p, acc0, bk, a_hat, **options)
+    torch.cuda.synchronize()
+    assert brk.last_plan[kernel.symbol]["samples_per_cta"] == spc
+    assert torch.equal(got, twin(p, acc0, bk, a_hat, **options))

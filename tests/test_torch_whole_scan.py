@@ -1,0 +1,291 @@
+"""The rest of the whole-scan family of the port — Kernel B at key_limbs=3
+('fused3', 'fusedb3'), Kernel E ('fusedp', 'fusedp3'), Kernel F ('fusedw',
+'fusedwb') and Kernel G ('fusedc', 'fusedc3') — and the samples-per-CTA
+picker, against the JAX package.
+
+Every comparison is bit-exact (tolerance 0).  On the CPU the port's kernel
+wrappers run their plain twins.  At ``nano`` each is held against its JAX
+Pallas kernel in interpret mode, on a key planted with words whose low byte
+is 0x80 (where truncating before or after the sign twist differs); each JAX
+output is computed once at B=8 and sliced for B=3.  At ``test_insecure``
+the exact impls are held against the JAX ``conv`` scan through
+``blind_rotate``, and the truncated ones against the port's 'fused3' rows
+and through decrypted NAND gates.  tests/test_torch_cuda.py holds each CUDA
+kernel against its twin on the card.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tfhe_tpu as jtfhe
+import tfhe_tpu.golden.model as g
+import tfhe_tpu_torch as ttfhe
+from tfhe_tpu.models import bootstrap as jboot
+from tfhe_tpu.models import lwe as jlwe
+from tfhe_tpu.models import test_vector as jtv
+from tfhe_tpu.models.keys import make_server_key as j_make_server_key
+from tfhe_tpu.ops.pallas import blind_rotate_kernel as jbrk
+from tfhe_tpu.ops.torus import switch_modulus as j_switch_modulus
+from tfhe_tpu_torch.models import bootstrap as tboot
+from tfhe_tpu_torch.models.keys import keys_from_numpy
+from tfhe_tpu_torch.ops import poly
+from tfhe_tpu_torch.ops.cuda import _build
+from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
+from tfhe_tpu_torch.ops.torus import to_numpy_u32, to_torch_u32
+from tfhe_tpu_torch.params import get_params as t_get_params
+
+NANO_B = 8
+BITS_A = np.array([0, 0, 1, 1], dtype=np.uint32)
+BITS_B = np.array([0, 1, 0, 1], dtype=np.uint32)
+
+#: impl -> (JAX kernel, port wrapper, options both take)
+VARIANTS = {
+    "fused3": (jbrk.blind_rotate_fused, brk.blind_rotate_fused, {"key_limbs": 3}),
+    "fusedb3": (jbrk.blind_rotate_fused, brk.blind_rotate_fused,
+                {"key_limbs": 3, "balanced": True}),
+    "fusedp": (jbrk.blind_rotate_fused_pipe, brk.blind_rotate_fused_pipe, {}),
+    "fusedp3": (jbrk.blind_rotate_fused_pipe, brk.blind_rotate_fused_pipe, {"key_limbs": 3}),
+    "fusedw": (jbrk.blind_rotate_fused_wide_pipe, brk.blind_rotate_fused_wide_pipe, {}),
+    "fusedwb": (jbrk.blind_rotate_fused_wide_pipe, brk.blind_rotate_fused_wide_pipe,
+                {"balanced": True}),
+    "fusedc": (jbrk.blind_rotate_fused_cols, brk.blind_rotate_fused_cols, {}),
+    "fusedc3": (jbrk.blind_rotate_fused_cols, brk.blind_rotate_fused_cols, {"key_limbs": 3}),
+}
+
+
+def rnd_u32(rng, shape):
+    return rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)
+
+
+def gaussian_u32(rng, std, shape):
+    return g.f64_to_torus(rng.normal(0.0, std, size=shape))
+
+
+def plant_0x80(rng, words: np.ndarray) -> np.ndarray:
+    """A copy of ``words`` with a quarter of them given the low byte 0x80,
+    half of those then negated (the low byte of -w is 0x80 too)."""
+    flat = words.copy().reshape(-1)
+    idx = rng.choice(flat.size, size=flat.size // 4, replace=False)
+    flat[idx] = (flat[idx] & np.uint32(0xFFFFFF00)) | np.uint32(0x80)
+    flat[idx[::2]] = np.uint32(0) - flat[idx[::2]]
+    return flat.reshape(words.shape)
+
+
+# ---------------------------------------------------------------------------
+# the truncated key
+# ---------------------------------------------------------------------------
+
+
+def test_truncation_follows_the_sign_twist():
+    """key_limbs=3 drops the low balanced byte of the sign-twisted word
+    w = +-g: the kept value is w - sext8(w & 0xFF).  Truncating g and then
+    negating differs by 256 wherever the low byte is 0x80."""
+    rng = np.random.default_rng(90)
+    n = 8
+    row = plant_0x80(rng, rnd_u32(rng, (1, 1, n)))
+    scale = torch.tensor([1, 1 << 8, 1 << 16, 1 << 24]).view(1, 4, 1)  # limb weights
+
+    def recombined(w):  # W[(m), (l, o)] -> sum_l limb_l << 8l, [m, o]
+        return (w.to(torch.int64).reshape(n, 4, n) * scale).sum(1).numpy() % (1 << 32)
+
+    kept = recombined(poly.bk_to_matmul_w(to_torch_u32(row), key_limbs=3))
+    g32 = row[0, 0].astype(np.int64)
+    m, o = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    twisted = np.where(m <= o, g32[(o - m) % n], -g32[(o - m) % n]) % (1 << 32)
+    low = twisted & 0xFF
+    model = twisted - np.where(low >= 128, low - 256, low)
+    assert np.array_equal(kept, model % (1 << 32))
+    low_g = g32 & 0xFF
+    g_cut = g32 - np.where(low_g >= 128, low_g - 256, low_g)
+    negate_after = np.where(m <= o, g_cut[(o - m) % n], -g_cut[(o - m) % n])
+    assert not np.array_equal(model % (1 << 32), negate_after % (1 << 32))
+    # the exact default keeps all four limbs
+    assert np.array_equal(recombined(poly.bk_to_matmul_w(to_torch_u32(row))), twisted)
+
+
+# ---------------------------------------------------------------------------
+# nano: each twin against its Pallas kernel in interpret mode
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nano_case():
+    """Seeded nano inputs at B=8 with a 0x80-planted key, and a cached call
+    of each JAX kernel on them."""
+    p = t_get_params("nano")
+    k1, n = p.glwe_dimension + 1, p.degree
+    rng = np.random.default_rng(91)
+    acc0 = rnd_u32(rng, (NANO_B, k1, n))
+    bk = plant_0x80(rng, rnd_u32(rng, (p.lwe_dimension, k1 * p.pbs_decomposer.levels, k1, n)))
+    a_hat = rng.integers(0, 2 * n, size=(p.lwe_dimension, NANO_B), dtype=np.int32)
+
+    @functools.lru_cache(maxsize=None)
+    def jax_out(impl):
+        jfn, _, options = VARIANTS[impl]
+        return np.asarray(jfn(jtfhe.get_params("nano"), jnp.asarray(acc0), jnp.asarray(bk),
+                              jnp.asarray(a_hat), interpret=True, **options), np.uint32)
+
+    return p, acc0, bk, a_hat, jax_out
+
+
+@pytest.mark.parametrize("batch", [NANO_B, 3])
+@pytest.mark.parametrize("impl", list(VARIANTS))
+def test_twin_matches_pallas_interpret_nano(nano_case, impl, batch):
+    p, acc0, bk, a_hat, jax_out = nano_case
+    _, fn, options = VARIANTS[impl]
+    got = fn(p, to_torch_u32(acc0[:batch]), to_torch_u32(bk),
+             torch.from_numpy(a_hat[:, :batch].copy()), **options)
+    assert np.array_equal(to_numpy_u32(got), jax_out(impl)[:batch])
+
+
+# ---------------------------------------------------------------------------
+# test_insecure: through blind_rotate and the gates
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def insecure():
+    """test_insecure keys from injected randomness, shared by both packages;
+    mod-switched ciphertexts of 4 messages, the identity test vector, the
+    JAX conv rotation of them, and the port's cached rotations by impl."""
+    p = jtfhe.get_params("test_insecure")
+    rng = np.random.default_rng(92)
+    k, n_deg, n = p.glwe_dimension, p.degree, p.lwe_dimension
+    rows = (k + 1) * p.pbs_decomposer.levels
+    kn = k * n_deg
+    lwe_sk = rng.integers(0, 2, size=n, dtype=np.uint32)
+    glwe_sk = rng.integers(0, 2, size=(k, n_deg), dtype=np.uint32)
+    jsk = j_make_server_key(
+        p, lwe_sk, glwe_sk, rnd_u32(rng, (n, rows, k, n_deg)),
+        gaussian_u32(rng, p.glwe_std_dev, (n, rows, n_deg)),
+        rnd_u32(rng, (kn * p.ks_decomposer.levels, n)),
+        gaussian_u32(rng, p.lwe_std_dev, (kn * p.ks_decomposer.levels,)))
+    tp = t_get_params("test_insecure")
+    tck, tsk = keys_from_numpy(tp, lwe_sk, glwe_sk, np.asarray(jsk.bk_u32),
+                               np.asarray(jsk.ksk_u32), device="cpu")
+    cts = np.asarray(jlwe.encrypt(lwe_sk, g.lwe_encode(np.arange(4, dtype=np.uint32), p),
+                                  rnd_u32(rng, (4, n)),
+                                  gaussian_u32(rng, p.lwe_std_dev, (4,))))
+    approx = np.asarray(j_switch_modulus(jnp.asarray(cts), p.log_q, p.log_degree + 1))
+    tv = jtv.identity_test_vector(p)
+    want = np.asarray(jboot.blind_rotate(p, jnp.asarray(approx), jsk, jnp.asarray(tv),
+                                         impl="conv"), np.uint32)
+
+    @functools.lru_cache(maxsize=None)
+    def rotate(impl):
+        return tboot.blind_rotate(tp, to_torch_u32(approx), tsk, to_torch_u32(tv), impl=impl)
+
+    return tp, tck, tsk, want, rotate
+
+
+@pytest.mark.parametrize("impl", ["fusedp", "fusedw", "fusedc"])
+def test_exact_impls_match_jax_conv(insecure, impl):
+    *_, want, rotate = insecure
+    assert np.array_equal(to_numpy_u32(rotate(impl)), want)
+
+
+def test_fusedwb_matches_fusedb(insecure):
+    """The balanced digits through Kernel F's twin and Kernel B's, whose
+    twin tests/test_torch_kernels.py holds against the JAX balanced scan."""
+    *_, want, rotate = insecure
+    assert torch.equal(rotate("fusedwb"), rotate("fusedb"))
+    assert not np.array_equal(to_numpy_u32(rotate("fusedwb")), want)  # other digits
+
+
+@pytest.mark.parametrize("impl", ["fusedp3", "fusedc3"])
+def test_truncated_impls_match_fused3(insecure, impl):
+    *_, want, rotate = insecure
+    assert torch.equal(rotate(impl), rotate("fused3"))
+    assert not np.array_equal(to_numpy_u32(rotate("fused3")), want)  # the key is truncated
+
+
+@pytest.mark.parametrize("impl", ["fused3", "fusedb3", "fusedp3", "fusedc3"])
+def test_truncated_impls_decode_nand(insecure, impl):
+    _, tck, tsk, *_ = insecure
+    a = ttfhe.encrypt(tck, BITS_A, torch.Generator().manual_seed(1))
+    b = ttfhe.encrypt(tck, BITS_B, torch.Generator().manual_seed(2))
+    got = ttfhe.decrypt(tck, ttfhe.gates.nand(tsk, a, b, impl=impl))
+    assert np.array_equal(to_numpy_u32(got), 1 - (BITS_A & BITS_B))
+
+
+def test_valid_impls_mirror_jax():
+    """The JAX package's impls, in its order, less 'conv' and the
+    interpret modes (the CPU twins play their role)."""
+    want = tuple(i for i in jboot.VALID_IMPLS if i != "conv" and not i.endswith("_interpret"))
+    assert tboot.VALID_IMPLS == want
+    for impl in ("fused3", "fusedb3", "fusedp", "fusedp3", "fusedw", "fusedwb", "fusedc",
+                 "fusedc3"):
+        assert tboot.resolve_impl(impl, "cpu") == impl
+    assert tboot.resolve_impl("auto", torch.device("cuda")) == "pallas"
+
+
+# ---------------------------------------------------------------------------
+# the shared-memory budget: samples per CTA
+# ---------------------------------------------------------------------------
+
+H100_OPTIN = 232448  # bytes of opt-in shared memory per block on an H100
+
+
+@pytest.mark.parametrize("kind,bytes_at_8,on_h100", [
+    ("fused", 136736, 8), ("pipe", 201280, 8), ("wide_pipe", 279616, 4), ("cols", 143904, 8)])
+def test_samples_per_cta_on_h100_budget(kind, bytes_at_8, on_h100):
+    """At default_128 every kernel but F keeps 8 samples per CTA (Kernel B's
+    measured times stay comparable); F's two staged key blocks leave room
+    for 4."""
+    p = t_get_params("default_128")
+    assert brk.smem_bytes(kind, p, 8) == bytes_at_8
+    pick = _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s), H100_OPTIN)
+    assert pick == on_h100
+
+
+def test_samples_per_cta_under_smaller_budgets():
+    p = t_get_params("default_128")
+
+    def pick(kind, budget):
+        return _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s), budget)
+
+    assert pick("fused", 100_000) == 4
+    assert pick("fused", brk.smem_bytes("fused", p, 2)) == 2  # the bound is inclusive
+    assert pick("fused", brk.smem_bytes("fused", p, 2) - 1) == 1
+    assert pick("pipe", 48 * 1024) == 1
+    assert pick("wide_pipe", 48 * 1024) is None  # not even one sample
+    assert pick("cols", 0) is None
+    # the choices are tried in the order given
+    assert _build.pick_samples_per_cta(lambda s: 10 * s, 35, choices=(1, 2, 4)) == 1
+    assert _build.pick_samples_per_cta(lambda s: 10 * s, 35) == 2
+
+
+def test_samples_per_cta_at_larger_degrees():
+    """N=2048: Kernel F's two key blocks alone pass the H100's budget; the
+    others fit fewer samples."""
+    p = t_get_params("large_2048")
+    picks = {kind: _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s),
+                                               H100_OPTIN)
+             for kind in ("fused", "pipe", "wide_pipe", "cols")}
+    assert picks == {"fused": 4, "pipe": 2, "wide_pipe": None, "cols": 2}
+
+
+# ---------------------------------------------------------------------------
+# wrappers: what they refuse
+# ---------------------------------------------------------------------------
+
+
+def test_wrappers_refuse_other_key_widths_and_devices(nano_case):
+    p, acc0, bk, a_hat, _ = nano_case
+    args = (p, to_torch_u32(acc0), to_torch_u32(bk), torch.from_numpy(a_hat))
+    for fn in (brk.blind_rotate_fused, brk.blind_rotate_fused_pipe, brk.blind_rotate_fused_cols):
+        with pytest.raises(ValueError, match="key_limbs"):
+            fn(*args, key_limbs=2)
+    meta = tuple(t.to("meta") for t in args[1:])
+    for fn in (brk.blind_rotate_fused_pipe, brk.blind_rotate_fused_wide_pipe,
+               brk.blind_rotate_fused_cols):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            fn(p, *meta)
+    kernels = (brk.KERNEL, brk.PIPE_KERNEL, brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL)
+    assert all(k.launches == 0 for k in kernels)
+    with pytest.raises(ValueError, match="unknown whole-scan kernel"):
+        brk.smem_bytes("wide", p, 1)

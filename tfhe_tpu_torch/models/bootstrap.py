@@ -9,7 +9,8 @@ Pipeline (src/bootstrapping.rs:58-120):
   4. sample-extract coefficient 0 -> LWE of dimension k*N;
   5. key-switch back to dimension n.
 
-Blind-rotation backends, all exact mod 2^32:
+Blind-rotation backends, all exact mod 2^32 but the truncated-key modes
+(``*3``):
 
   * ``matmul`` — the plain scan: a Python loop over the steps, Toeplitz
     matmul contraction (counterpart of ``rotate_chunk_xla``).  Runs anywhere.
@@ -18,7 +19,17 @@ Blind-rotation backends, all exact mod 2^32:
     contraction is Kernel A (``ops/cuda/ep_kernel.py``).  Default on CUDA.
   * ``fused`` / ``fusedb`` — the whole rotation in one launch of Kernel B
     (``ops/cuda/blind_rotate_kernel.py``), with the reference carry-chain
-    digits or the closed-form balanced digits (DIVERGENCES.md #3).
+    digits or the closed-form balanced digits (DIVERGENCES.md #3);
+    ``fused3`` / ``fusedb3`` the same with the truncated key (the low byte
+    of each sign-twisted key word dropped: approximate, it spends part of
+    the gate's noise margin).
+  * ``fusedp`` / ``fusedp3`` — Kernel E, the software-pipelined whole scan
+    (carry-chain digits, exact or truncated key); ``fusedw`` / ``fusedwb`` —
+    Kernel F, the wide-contraction pipelined scan (exact key, carry-chain or
+    balanced digits); ``fusedc`` / ``fusedc3`` — Kernel G, the column-split
+    scan on thread-block clusters (carry-chain digits, exact or truncated
+    key).  All in ``ops/cuda/blind_rotate_kernel.py``; at one digit
+    convention and key width every whole-scan impl gives the same bits.
   * ``bmmp`` — the BMMP halved-depth scan (n/2 steps against the
     ``keygen(bmmp=True)`` triples); each step's contraction is Kernel A.
   * ``fusedl`` / ``bmmpl`` — the small-batch latency path (B <= 8, resp.
@@ -37,7 +48,10 @@ The block-NTT impls use the reference carry-chain digits, so 'ntt', 'ntts'
 and 'nttf' equal 'fused' bit for bit.  An impl whose key form is missing
 raises ``ValueError`` naming the function that attaches it.
 
-On CPU tensors the kernel backends run their kernels' plain twins.
+On CPU tensors the kernel backends run their kernels' plain twins.  They
+play the role of the JAX package's ``*_interpret`` impls (the Pallas kernel
+run on the CPU), which have no counterpart here, and ``matmul`` plays that
+of its ``conv`` scan.
 """
 
 from __future__ import annotations
@@ -47,7 +61,7 @@ import torch
 from tfhe_tpu_torch.models import glwe as mglwe
 from tfhe_tpu_torch.models import keyswitch as mks
 from tfhe_tpu_torch.ops import ntt
-from tfhe_tpu_torch.ops.cuda.blind_rotate_kernel import blind_rotate_fused
+from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
 from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
 from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
 from tfhe_tpu_torch.ops.cuda.ep_kernel import ep_contract_rbn
@@ -56,9 +70,25 @@ from tfhe_tpu_torch.ops.poly import ep_combine, ep_combine_planes, ep_contract_m
 from tfhe_tpu_torch.ops.torus import switch_modulus, u32
 from tfhe_tpu_torch.params import TfheParams
 
-#: every backend string ``blind_rotate`` accepts
-VALID_IMPLS = ("auto", "matmul", "pallas", "fused", "fusedb", "bmmp", "fusedl", "bmmpl",
-               "ntt", "ntts", "nttf")
+#: every backend string ``blind_rotate`` accepts: the JAX package's, in its
+#: order, less ``conv`` and the ``*_interpret`` modes
+VALID_IMPLS = ("auto", "matmul", "pallas", "fused", "fused3", "fusedb", "fusedb3",
+               "fusedc", "fusedc3", "fusedp", "fusedp3", "fusedw", "fusedwb",
+               "bmmp", "ntt", "ntts", "nttf", "fusedl", "bmmpl")
+
+#: the whole-scan impls: their wrapper and its options
+_WHOLE_SCAN = {
+    "fused": (brk.blind_rotate_fused, {}),
+    "fused3": (brk.blind_rotate_fused, {"key_limbs": 3}),
+    "fusedb": (brk.blind_rotate_fused, {"balanced": True}),
+    "fusedb3": (brk.blind_rotate_fused, {"balanced": True, "key_limbs": 3}),
+    "fusedc": (brk.blind_rotate_fused_cols, {}),
+    "fusedc3": (brk.blind_rotate_fused_cols, {"key_limbs": 3}),
+    "fusedp": (brk.blind_rotate_fused_pipe, {}),
+    "fusedp3": (brk.blind_rotate_fused_pipe, {"key_limbs": 3}),
+    "fusedw": (brk.blind_rotate_fused_wide_pipe, {}),
+    "fusedwb": (brk.blind_rotate_fused_wide_pipe, {"balanced": True}),
+}
 
 
 def resolve_impl(impl: str, device) -> str:
@@ -222,9 +252,9 @@ def blind_rotate(params: TfheParams, approx_ct, server_key, tv_encoded,
     if impl in ("bmmp", "bmmpl"):
         _require_bmmp_key(server_key)
     acc0, a_hat = _init_acc(params, approx_ct, tv_encoded)
-    if impl in ("fused", "fusedb"):
-        return blind_rotate_fused(params, acc0, server_key.bk_u32, a_hat,
-                                  balanced=impl == "fusedb")
+    if impl in _WHOLE_SCAN:
+        rotate, options = _WHOLE_SCAN[impl]
+        return rotate(params, acc0, server_key.bk_u32, a_hat, **options)
     if impl == "fusedl":
         bk_lat = _require_latency_key(server_key.bk_lat)
         return latk.blind_rotate_latency(params, acc0, bk_lat, a_hat[:, None, :])

@@ -16,6 +16,7 @@ counts the launches that succeeded.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -40,9 +41,12 @@ def _nvcc() -> str:
 
 def build(name: str) -> tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless its library exists; return the
-    library's path and the compiler's resource report (empty if cached)."""
+    library's path and the compiler's resource report (empty if cached).
+    The library is named by the source, the shared headers and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    flags = " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(src.read_bytes() + headers + flags).hexdigest()
     lib = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
     if lib.exists():
         return lib, ""
@@ -95,6 +99,26 @@ class CudaKernel:
             msg = self._lib.tfhe_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+#: the samples-per-CTA choices of the whole-scan kernels, largest first
+SAMPLES_PER_CTA = (8, 4, 2, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def smem_budget(device) -> int:
+    """The opt-in shared memory per block of CUDA ``device`` in bytes: the
+    most a kernel may ask for (232448 on an H100).  The counterpart of the
+    JAX package's ``_probe_vmem_budget``, which asks the TPU compiler
+    whether a scoped VMEM budget compiles; here the runtime states it
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def pick_samples_per_cta(smem_bytes, budget: int, choices=SAMPLES_PER_CTA) -> int | None:
+    """The largest S of ``choices`` (tried in order) whose ``smem_bytes(S)``
+    fits ``budget``, or None when none does."""
+    return next((s for s in choices if smem_bytes(s) <= budget), None)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

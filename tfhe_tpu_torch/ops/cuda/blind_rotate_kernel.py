@@ -1,11 +1,31 @@
-"""Kernel B: the whole-scan blind rotation (counterpart of
-``tfhe_tpu/ops/pallas/blind_rotate_kernel.py:blind_rotate_fused`` with
-``key_limbs=4``, both digit conventions).
+"""The whole-scan blind rotations: counterparts of the four entry points of
+``tfhe_tpu/ops/pallas/blind_rotate_kernel.py``, each with its own
+hand-written kernel and plain twin.
 
-``blind_rotate_fused`` launches ``csrc/blind_rotate_kernel.cu`` for CUDA
-tensors and runs its plain twin ``blind_rotate_fused_ref`` for CPU tensors;
-it raises for anything else.  u32 values are int32 tensors (see
-``ops/torus.py``).
+  * ``blind_rotate_fused`` — Kernel B (``csrc/blind_rotate_kernel.cu``):
+    both digit conventions, ``key_limbs`` 4 (exact) or 3 (impls 'fused',
+    'fusedb', 'fused3', 'fusedb3');
+  * ``blind_rotate_fused_pipe`` — Kernel E (``csrc/pipe_kernel.cu``):
+    carry-chain digits, ``key_limbs`` 4 or 3 ('fusedp', 'fusedp3');
+  * ``blind_rotate_fused_wide_pipe`` — Kernel F (``csrc/wide_pipe_kernel.cu``):
+    both digit conventions, exact key ('fusedw', 'fusedwb');
+  * ``blind_rotate_fused_cols`` — Kernel G (``csrc/cols_kernel.cu``):
+    carry-chain digits, ``key_limbs`` 4 or 3 ('fusedc', 'fusedc3').
+
+All four compute the same step (``csrc/whole_scan.cuh``), so at one digit
+convention and key width they agree bit for bit; they differ in schedule.
+``key_limbs=3`` drops the low byte of each sign-twisted key word, as the TPU
+kernels drop their lowest int8 limb plane: an approximate mode that spends
+part of the gate's noise margin (PERF.md measures how much at default_128).
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain twin
+``*_ref`` for CPU tensors; it raises for anything else.  On the card the
+samples per CTA are the largest of ``SAMPLES_PER_CTA`` whose shared memory
+fits the card's budget (``_build.smem_budget``); a shape that does not fit
+one sample raises ``ValueError`` before anything is launched.  Unlike the
+TPU kernels, whose batch lives in VMEM (2048 samples per call for
+``fusedp``, 1536 for ``fusedw``), each kernel takes any batch in one launch.
+u32 values are int32 tensors (see ``ops/torus.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +34,14 @@ import ctypes
 
 import torch
 
-from tfhe_tpu_torch.ops.cuda._build import CudaKernel, check_cuda_operand, ptr, stream_of
+from tfhe_tpu_torch.ops.cuda._build import (
+    CudaKernel,
+    check_cuda_operand,
+    pick_samples_per_cta,
+    ptr,
+    smem_budget,
+    stream_of,
+)
 from tfhe_tpu_torch.ops.decomposer import (
     balanced_offset,
     decompose_balanced_planes,
@@ -23,14 +50,52 @@ from tfhe_tpu_torch.ops.decomposer import (
 from tfhe_tpu_torch.ops.poly import ep_combine, ep_contract_matmul, monomial_mul
 from tfhe_tpu_torch.params import TfheParams
 
-KERNEL = CudaKernel(
-    "blind_rotate_kernel", "blind_rotate_fused",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_uint, ctypes.c_void_p],
-)
+_INT, _PTR = ctypes.c_int, ctypes.c_void_p
+_INFO = ctypes.POINTER(ctypes.c_int)
+KERNEL = CudaKernel("blind_rotate_kernel", "blind_rotate_fused",
+                    [_PTR] * 4 + [_INT] * 8 + [ctypes.c_uint, _INT, _INT, _INFO, _PTR])
+PIPE_KERNEL = CudaKernel("pipe_kernel", "blind_rotate_fused_pipe",
+                         [_PTR] * 4 + [_INT] * 9 + [_INFO, _PTR])
+WIDE_PIPE_KERNEL = CudaKernel("wide_pipe_kernel", "blind_rotate_fused_wide_pipe",
+                              [_PTR] * 4 + [_INT] * 8 + [ctypes.c_uint, _INT, _INFO, _PTR])
+COLS_KERNEL = CudaKernel("cols_kernel", "blind_rotate_fused_cols",
+                         [_PTR] * 4 + [_INT] * 9 + [_INFO, _PTR])
+#: the launch plan of each kernel's last launch, by C symbol: samples per
+#: CTA, threads per CTA, dynamic shared memory bytes, CTAs (and for Kernel G
+#: the clusters the card holds at once)
+last_plan: dict = {}
+
+
+def _pad(j: int) -> int:
+    return j + (j >> 3)
+
+
+def smem_bytes(kind: str, params: TfheParams, spc: int) -> int:
+    """Dynamic shared memory of one CTA of a whole-scan kernel with ``spc``
+    samples per CTA, as its C entry point sizes it.  ``kind`` is the C
+    symbol's suffix: 'fused', 'pipe', 'wide_pipe' or 'cols'."""
+    c, n, levels = params.glwe_dimension + 1, params.degree, params.pbs_decomposer.levels
+    r = c * levels
+    row = 4 * _pad(2 * n)  # one staged row w(+-g)
+    if kind == "fused":
+        return 4 * spc * c * n + c * row + spc * r * n + 4 * spc
+    if kind == "pipe":
+        return 4 * spc * c * n + 2 * spc * r * n + row + 4 * 2 * spc
+    if kind == "wide_pipe":
+        return 4 * 2 * r * (n + n // 8) + 4 * spc * c * n + 2 * spc * r * n + 4 * 2 * spc
+    if kind == "cols":
+        return 4 * spc * n + 2 * spc * levels * n + spc * r * n + row + 4 * spc
+    raise ValueError(f"unknown whole-scan kernel {kind!r}")
+
+
+def _check_key_limbs(key_limbs: int) -> None:
+    if key_limbs not in (3, 4):
+        raise ValueError(f"key_limbs is 4 (exact) or 3 (truncated), got {key_limbs}")
 
 
 def blind_rotate_fused_ref(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Tensor,
-                           a_hat: torch.Tensor, balanced: bool = False) -> torch.Tensor:
+                           a_hat: torch.Tensor, balanced: bool = False,
+                           key_limbs: int = 4) -> torch.Tensor:
     """Plain twin: per step, acc += EP(digits(acc * X^a - acc), BK_s) through
     ``monomial_mul`` -> decompose -> ``ep_contract_matmul`` -> ``ep_combine``.
     Digit rows are canonical (poly*levels + level)."""
@@ -42,29 +107,104 @@ def blind_rotate_fused_ref(params: TfheParams, acc0: torch.Tensor, bk_u32: torch
         rot = monomial_mul(acc, a_hat[s][:, None])
         digits = decompose(rot - acc, dp)  # [levels, B, k+1, N]
         digits = digits.permute(1, 2, 0, 3).reshape(b, k1 * dp.levels, n)
-        acc = acc + ep_combine(ep_contract_matmul(digits, bk_u32[s]), k1)
+        acc = acc + ep_combine(ep_contract_matmul(digits, bk_u32[s], key_limbs), k1)
     return acc
 
 
-def blind_rotate_fused(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Tensor,
-                       a_hat: torch.Tensor, balanced: bool = False) -> torch.Tensor:
-    """acc0 u32[B, k+1, N], bk u32[n, R, k+1, N] (canonical rows), a_hat
-    int32[n, B] -> the final accumulator u32[B, k+1, N].  ``balanced``
-    selects the closed-form balanced digits (impl='fusedb') over the
-    reference carry chain (impl='fused')."""
-    if all(t.device.type == "cpu" for t in (acc0, bk_u32, a_hat)):
-        return blind_rotate_fused_ref(params, acc0, bk_u32, a_hat, balanced)
+def blind_rotate_fused_pipe_ref(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Tensor,
+                                a_hat: torch.Tensor, key_limbs: int = 4) -> torch.Tensor:
+    """Plain twin of Kernel E: the per-step loop with carry-chain digits."""
+    return blind_rotate_fused_ref(params, acc0, bk_u32, a_hat, False, key_limbs)
+
+
+def blind_rotate_fused_wide_pipe_ref(params: TfheParams, acc0: torch.Tensor,
+                                     bk_u32: torch.Tensor, a_hat: torch.Tensor,
+                                     balanced: bool = False) -> torch.Tensor:
+    """Plain twin of Kernel F: the per-step loop with the exact key."""
+    return blind_rotate_fused_ref(params, acc0, bk_u32, a_hat, balanced, 4)
+
+
+def blind_rotate_fused_cols_ref(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Tensor,
+                                a_hat: torch.Tensor, key_limbs: int = 4) -> torch.Tensor:
+    """Plain twin of Kernel G: the per-step loop with carry-chain digits."""
+    return blind_rotate_fused_ref(params, acc0, bk_u32, a_hat, False, key_limbs)
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _launch(kernel: CudaKernel, kind: str, params: TfheParams, acc0: torch.Tensor,
+            bk_u32: torch.Tensor, a_hat: torch.Tensor, *mode) -> torch.Tensor:
+    """Check the operands, pick the samples per CTA and launch ``kernel``
+    with arguments (pointers, shape, decomposer, *mode, spc, info, stream)."""
     device = acc0.device
     if device.type != "cuda":
-        raise ValueError(f"blind_rotate_fused runs on CPU or CUDA tensors, got {device}")
+        raise ValueError(f"{kernel.symbol} runs on CPU or CUDA tensors, got {device}")
     b, k1, n = acc0.shape
     steps = bk_u32.shape[0]
     dp = params.pbs_decomposer
     check_cuda_operand("acc0", acc0, torch.int32, (b, k1, n), device)
     check_cuda_operand("bk_u32", bk_u32, torch.int32, (steps, k1 * dp.levels, k1, n), device)
     check_cuda_operand("a_hat", a_hat, torch.int32, (steps, b), device)
+    if kind == "wide_pipe" and bk_u32.data_ptr() % 16:
+        raise ValueError("bk_u32 must be 16-byte aligned (Kernel F copies it in 16-byte pieces)")
+    budget = smem_budget(device)
+    spc = pick_samples_per_cta(lambda s: smem_bytes(kind, params, s), budget)
+    if spc is None:
+        raise ValueError(f"{kernel.symbol}: one sample needs {smem_bytes(kind, params, 1)} "
+                         f"bytes of shared memory, over the card's {budget}")
     out = torch.empty_like(acc0)
-    KERNEL.launch(ptr(acc0), ptr(bk_u32), ptr(a_hat), ptr(out), steps, b, k1, n,
-                  dp.levels, dp.log_base, dp.ignored_bits, int(balanced),
-                  balanced_offset(dp), stream_of(out))
+    info = (ctypes.c_int * 5)()
+    kernel.launch(ptr(acc0), ptr(bk_u32), ptr(a_hat), ptr(out), steps, b, k1, n, dp.levels,
+                  dp.log_base, dp.ignored_bits, *mode, spc, info, stream_of(out))
+    plan = dict(samples_per_cta=info[0], threads=info[1], smem_bytes=info[2], ctas=info[3])
+    if kind == "cols":
+        plan["max_active_clusters"] = info[4]
+    last_plan[kernel.symbol] = plan
     return out
+
+
+def blind_rotate_fused(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Tensor,
+                       a_hat: torch.Tensor, balanced: bool = False,
+                       key_limbs: int = 4) -> torch.Tensor:
+    """acc0 u32[B, k+1, N], bk u32[n, R, k+1, N] (canonical rows), a_hat
+    int32[n, B] -> the final accumulator u32[B, k+1, N].  ``balanced``
+    selects the closed-form balanced digits over the reference carry chain;
+    ``key_limbs=3`` the truncated key."""
+    _check_key_limbs(key_limbs)
+    if _on_cpu(acc0, bk_u32, a_hat):
+        return blind_rotate_fused_ref(params, acc0, bk_u32, a_hat, balanced, key_limbs)
+    return _launch(KERNEL, "fused", params, acc0, bk_u32, a_hat, int(balanced),
+                   balanced_offset(params.pbs_decomposer), key_limbs)
+
+
+def blind_rotate_fused_pipe(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Tensor,
+                            a_hat: torch.Tensor, key_limbs: int = 4) -> torch.Tensor:
+    """Kernel E: as ``blind_rotate_fused`` with carry-chain digits, step
+    s+1's digits built by producer warps while step s's columns contract."""
+    _check_key_limbs(key_limbs)
+    if _on_cpu(acc0, bk_u32, a_hat):
+        return blind_rotate_fused_pipe_ref(params, acc0, bk_u32, a_hat, key_limbs)
+    return _launch(PIPE_KERNEL, "pipe", params, acc0, bk_u32, a_hat, key_limbs)
+
+
+def blind_rotate_fused_wide_pipe(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Tensor,
+                                 a_hat: torch.Tensor, balanced: bool = False) -> torch.Tensor:
+    """Kernel F: as ``blind_rotate_fused`` with the exact key, each column's
+    whole key block staged by async copy under the previous column.  (The
+    JAX function's ``key_limbs`` is left out: no impl sets it.)"""
+    if _on_cpu(acc0, bk_u32, a_hat):
+        return blind_rotate_fused_wide_pipe_ref(params, acc0, bk_u32, a_hat, balanced)
+    return _launch(WIDE_PIPE_KERNEL, "wide_pipe", params, acc0, bk_u32, a_hat, int(balanced),
+                   balanced_offset(params.pbs_decomposer))
+
+
+def blind_rotate_fused_cols(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Tensor,
+                            a_hat: torch.Tensor, key_limbs: int = 4) -> torch.Tensor:
+    """Kernel G: as ``blind_rotate_fused`` with carry-chain digits, one
+    thread-block cluster of k+1 CTAs per sample group, one CTA per column."""
+    _check_key_limbs(key_limbs)
+    if _on_cpu(acc0, bk_u32, a_hat):
+        return blind_rotate_fused_cols_ref(params, acc0, bk_u32, a_hat, key_limbs)
+    return _launch(COLS_KERNEL, "cols", params, acc0, bk_u32, a_hat, key_limbs)

@@ -78,23 +78,30 @@ def negacyclic_matvec_u32_small(a_u32, t_small) -> torch.Tensor:
     return combine_limb_accs(acc.movedim(-2, -1))
 
 
-def bk_to_matmul_w(bk_u32) -> torch.Tensor:
+def bk_to_matmul_w(bk_u32, key_limbs: int = NUM_LIMBS) -> torch.Tensor:
     """GGSW u32[R, C, N] -> Toeplitz weights int8[R*N(m), C*4*N(o)].
 
     W[(r,m),(c,l,o)] = limb_l( +-g[r,c,(o-m)%N] ), sign applied in u32
     before the limb split.  Column layout (c, limb, o) matches ``ep_combine``.
+    ``key_limbs=3`` zeroes limb 0 (the truncated-key mode of the whole-scan
+    kernels: the low byte of each sign-twisted word is dropped).
     """
+    if key_limbs not in (3, NUM_LIMBS):
+        raise ValueError(f"key_limbs is 4 (exact) or 3 (truncated), got {key_limbs}")
     t = sign_toeplitz_u32(bk_u32)  # [R, C, m, o]
     limbs = to_signed_limbs(t)  # [R, C, m, o, L]
+    if key_limbs == 3:
+        limbs[..., 0] = 0
     limbs = limbs.movedim(-1, -2).transpose(1, 2)  # [R, m, C, L, o]
     r, c, n = bk_u32.shape
     return limbs.reshape(r * n, c * NUM_LIMBS * n)
 
 
-def ep_contract_matmul(digits_i8, bk_u32) -> torch.Tensor:
+def ep_contract_matmul(digits_i8, bk_u32, key_limbs: int = NUM_LIMBS) -> torch.Tensor:
     """Exact external-product contraction: digits int8[B, R, N] x GGSW
     u32[R, C, N] -> int32[B, C*4, N] limb accumulators,
-    out[b,(c,l),o] = sum_{r,m} digits[b,r,m] * limb_l(+-g[r,c,(o-m)%N]).
+    out[b,(c,l),o] = sum_{r,m} digits[b,r,m] * limb_l(+-g[r,c,(o-m)%N])
+    (limb 0 taken as 0 when ``key_limbs=3``).
 
     The Toeplitz expansion is built per call and shared across the batch;
     the product runs one column block at a time to bound the float64 copy.
@@ -102,7 +109,7 @@ def ep_contract_matmul(digits_i8, bk_u32) -> torch.Tensor:
     b = digits_i8.shape[0]
     r, n = digits_i8.shape[-2:]
     c = bk_u32.shape[1]
-    w = bk_to_matmul_w(bk_u32).view(r * n, c, NUM_LIMBS * n)
+    w = bk_to_matmul_w(bk_u32, key_limbs).view(r * n, c, NUM_LIMBS * n)
     flat = digits_i8.reshape(b, r * n)
     acc = torch.stack([int_matmul(flat, w[:, j]) for j in range(c)], dim=1)
     return acc.reshape(b, c * NUM_LIMBS, n)
