@@ -9,15 +9,17 @@ run's seconds at the end.  Each phase raises on
 failure, so the script exits nonzero and prints no result line.
 
   0. require CUDA; print the card, its power limit, torch and CUDA versions;
-  1. build the kernels, all nvcc processes at once, with the build seconds
-     and ptxas' resource report;
+  1. build the kernels, all nvcc processes at once (one per source, eight),
+     with the build seconds and ptxas' resource report;
   2. hold each kernel against its plain PyTorch twin (``torch.equal``) at
      nano, test_insecure and a 16-step slice of the default_128 key (Kernel C
      in both forms: V=1 and the BMMP V=3; Kernel D also on an all-ones
      canonical key, the key side of its CRT range at its bound; Kernel B at
      key_limbs=3 and Kernels E, F and G in all their modes, also on a key
-     whose every low byte is 0x80, the truncated key's hard case);
-  3. five paths at default_128 through the public API (keygen with the BMMP
+     whose every low byte is 0x80, the truncated key's hard case; Kernel H
+     at B=1, 7, 64, on a key whose every byte is 0x80, and on one GGSW of
+     the default_128 key at B=64 and 1024);
+  3. seven paths at default_128 through the public API (keygen with the BMMP
      key, the latency key and both NTT key forms, whose seconds and peak
      device memory it prints; encrypt, NAND, decrypt), each with the launch
      counters set to 0 just before it and read just after:
@@ -34,7 +36,12 @@ failure, so the script exits nonzero and prints no result line.
          'fusedp', 'fusedp3' (Kernel E), 'fusedw', 'fusedwb' (Kernel F),
          'fusedc', 'fusedc3' (Kernel G) at B=1024; 'fusedp', 'fusedc' and
          'fusedw' must equal the 'fused' rows, 'fusedwb' the 'fusedb' rows,
-         'fusedp3' and 'fusedc3' the 'fused3' rows.
+         'fusedp3' and 'fusedc3' the 'fused3' rows;
+       - conv: the 'conv' scan at B=64, which must equal the 'fused' rows
+         and launch Kernel H once per step (722) and Kernel A never;
+       - GGSW: ``ggsw.cmux`` of 1024 GLWE encryptions of random bits against
+         the key's first GGSW with impl 'conv' (Kernel H), which must equal
+         impl 'matmul' and decrypt to the bits its secret bit selects.
      Every gate needs 0 errors and a noise margin below 0.5, the add must be
      right, and each path must have launched its kernels;
   4. time 'fusedb' at B=1024 with CUDA events, with the SM clock sampled by
@@ -46,15 +53,22 @@ failure, so the script exits nonzero and prints no result line.
      its twin at [B=1024, 722 steps], and the 'ntt' and 'ntts' gates at B=64,
      then the eight whole-scan variant gates at B=1024, and Kernel B at
      key_limbs=3 and Kernels E, F and G, each timed with the SM clock
-     sampled and held against its twin at [B=1024, 722 steps].
+     sampled and held against its twin at [B=1024, 722 steps], then Kernel H
+     and its twin at B=64 and 1024, the 'conv' gate at B=64, and the library
+     call of the two contraction kernels (below).
 
 The line before the last is the kernels' JSON record, each kernel with its
 bound: the larger of its operations (int8 multiply-adds as the TPU kernel
 formulates them) over the int8 tensor-core peak and its bytes (each input
 read once, each output written once) over the memory rate, at the H100's
-data-sheet rates.  No single PyTorch call computes any of these functions,
-so ``library_ms`` is null.  The last line is ``{"ok": true, "device":
-{...}}``.  It imports neither JAX nor ``tfhe_tpu``.
+data-sheet rates.  One PyTorch call computes each of the two contraction
+kernels' functions (Kernels A and H): ``torch._int_mm`` of the digits,
+flattened to [B, R*N], against the key's Toeplitz limb form
+``bk_to_matmul_w`` (int8 [R*N, C*4*N], built once and kept column-major,
+cuBLAS's fastest layout for it); its time is their ``library_ms``, held
+equal to the kernels' sums.  No single call computes the whole-scan
+kernels' functions, so theirs is null.  The last line is ``{"ok": true,
+"device": {...}}``.  It imports neither JAX nor ``tfhe_tpu``.
 """
 
 from __future__ import annotations
@@ -76,6 +90,8 @@ SLICE_STEPS = 16  # default_128 key steps held against the twin in phase 2
 BMMP_B = 64  # batch of the BMMP scan gate (Kernel A at 3R rows)
 ADD_W = 8  # width of the encrypted add on the latency path
 NTT_B = 64  # batch of the plain block-NTT scans 'ntt' and 'ntts'
+CONV_B = 64  # batch of the 'conv' scan gate (Kernel H per step)
+CMUX_B = 1024  # GLWE ciphertexts of the GGSW path's cmux (one Kernel H launch)
 #: H100 SXM data sheet: int8 tensor cores 1979e12 ops/s (2 per multiply-add),
 #: HBM 3.35e12 bytes/s
 INT8_MACS_PER_S = 1979e12 / 2
@@ -110,6 +126,10 @@ def bound(macs: float, nbytes: float) -> tuple[float, str]:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def max_abs_err(got: torch.Tensor, ref: torch.Tensor) -> int:
+    return int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
 
 
 def rnd_u32(rng, shape) -> np.ndarray:
@@ -246,6 +266,32 @@ def phase2_nttf(nttk, ntt, get_params, to_torch_u32, params, sk, dev) -> None:
     torch.cuda.synchronize()
 
 
+def phase2_ep_batch(epk, get_params, to_torch_u32, params, sk, dev) -> None:
+    """Kernel H against its twin: random GGSWs at nano and test_insecure
+    (B=1, 7, 64), a GGSW whose every byte is 0x80 (where negating after the
+    limb split would be wrong), and the first GGSW of the default_128 key at
+    B=64 and B=1024."""
+    rng = np.random.default_rng(8)
+    cases = [(name, b, "random") for name in ("nano", "test_insecure") for b in (1, 7, 64)]
+    cases += [("nano", 7, "0x80"), ("test_insecure", 7, "0x80"),
+              (params.name, 64, "key"), (params.name, 1024, "key")]
+    for name, b, kind in cases:
+        p = get_params(name)
+        k1, n = p.glwe_dimension + 1, p.degree
+        r = k1 * p.pbs_decomposer.levels
+        if kind == "key":
+            g = sk.bk_u32[0]
+        else:
+            words = (np.full((r, k1, n), 0x80808080, np.uint32) if kind == "0x80"
+                     else rnd_u32(rng, (r, k1, n)))
+            g = to_torch_u32(words, dev)
+        d = torch.from_numpy(rng.integers(-8, 17, size=(b, r, n), dtype=np.int8)).to(dev)
+        require(torch.equal(epk.ep_contract(d, g), epk.ep_contract_ref(d, g)),
+                f"ep_contract != twin at {name} B={b} ({kind} key)")
+        log(f"  ep_contract {kind:6s} {name:13s} B={b:<4d} equal")
+    torch.cuda.synchronize()
+
+
 #: the whole-scan variants: impl -> (wrapper name, options); their twins are
 #: the wrapper name + "_ref"
 WHOLE_SCAN = {
@@ -323,21 +369,24 @@ def main() -> int:
     from measure_torch import dp4a_per_sample_step, sampled_clocks
     import tfhe_tpu_torch as tfhe
     from tfhe_tpu_torch.models import bootstrap as mboot
+    from tfhe_tpu_torch.models import ggsw as mggsw
+    from tfhe_tpu_torch.models import glwe as mglwe
     from tfhe_tpu_torch.models import keyswitch as mks
     from tfhe_tpu_torch.models.keys import ntt_build_peak_bytes, ntt_form_bytes
     from tfhe_tpu_torch.models import test_vector as mtv
     from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
     from tfhe_tpu_torch.ops.cuda import ep_kernel as epk
-    from tfhe_tpu_torch.ops import ntt
+    from tfhe_tpu_torch.ops import ntt, sampling
     from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
     from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
     from tfhe_tpu_torch.ops.cuda._build import smem_budget
-    from tfhe_tpu_torch.ops.torus import switch_modulus, to_numpy_u32, to_torch_u32
+    from tfhe_tpu_torch.ops.poly import bk_to_matmul_w
+    from tfhe_tpu_torch.ops.torus import decode, switch_modulus, to_numpy_u32, to_torch_u32
     from tfhe_tpu_torch.utils import noise
 
     dev = torch.device("cuda")
     kernels = (epk.KERNEL, brk.KERNEL, latk.KERNEL, nttk.KERNEL, brk.PIPE_KERNEL,
-               brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL)
+               brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL, epk.BATCH_KERNEL)
     phase1(kernels)
     t0 = time.perf_counter()
     budget = smem_budget(dev)
@@ -372,6 +421,7 @@ def main() -> int:
     phase2_latency(latk, tfhe.get_params, to_torch_u32, params, sk, dev)
     phase2_nttf(nttk, ntt, tfhe.get_params, to_torch_u32, params, sk, dev)
     phase2_whole_scan(brk, tfhe.get_params, to_torch_u32, params, sk, dev)
+    phase2_ep_batch(epk, tfhe.get_params, to_torch_u32, params, sk, dev)
 
     log(f"phase 3: main paths, {params.name} NAND")
     rng = np.random.default_rng(3)
@@ -449,8 +499,42 @@ def main() -> int:
     for k in (brk.KERNEL, brk.PIPE_KERNEL, brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL):
         require(ws_launches[k.symbol] > 0,
                 f"{k.symbol} was not launched on the whole-scan variants path: {ws_launches}")
+
+    log(f"  conv path: the 'conv' scan at B={CONV_B}")
+    conv_out, conv_launches = drive(kernels, lambda: nand("conv", CONV_B))
+    check_gates(tfhe, noise, to_numpy_u32, ck, {"conv": conv_out}, want)
+    require(torch.equal(conv_out, fused_rows[:CONV_B]),
+            "conv (Kernel H) output differs from the fused (Kernel B) rows")
+    log(f"  conv == fused[:{CONV_B}] bit for bit; launches: {conv_launches}")
+    require(conv_launches["ep_contract"] == params.n and conv_launches["ep_contract_rbn"] == 0,
+            f"the conv scan did not launch Kernel H once per step and Kernel A never: "
+            f"{conv_launches}")
+
+    log(f"  GGSW path: ggsw.cmux of {CMUX_B} GLWE ciphertexts against the key's first GGSW")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    sk_t = mglwe.sk_toeplitz(ck.glwe_sk)
+    glwe_bits = sampling.binary(gen, (2, CMUX_B, params.degree))
+    c0, c1 = (mglwe.encrypt(sk_t, glwe_bits[i] * params.delta,
+                            sampling.uniform_u32(gen, (CMUX_B, params.k, params.degree)),
+                            sampling.gaussian_torus(gen, params.glwe_std_dev,
+                                                    (CMUX_B, params.degree)))
+              for i in (0, 1))
+    cmux_out, cmux_launches = drive(
+        kernels, lambda: mggsw.cmux(sk.bk_u32[0], c0, c1, params, impl="conv"))
+    require(torch.equal(cmux_out, mggsw.cmux(sk.bk_u32[0], c0, c1, params, impl="matmul")),
+            "ggsw.cmux impl='conv' (Kernel H) differs from impl='matmul'")
+    selected = int(ck.lwe_sk[0])
+    decoded = decode(mglwe.decrypt(sk_t, cmux_out), params.log_q, params.log_p,
+                     params.padding_bits)
+    cmux_errors = int((decoded != glwe_bits[selected]).sum())
+    log(f"  cmux conv == matmul bit for bit; decrypts to c{selected}'s bits with {cmux_errors} "
+        f"errors of {decoded.numel()}; launches: {cmux_launches}")
+    require(cmux_errors == 0, f"cmux decrypted with {cmux_errors} wrong coefficients")
+    require(cmux_launches["ep_contract"] > 0,
+            f"Kernel H was not launched on the GGSW path: {cmux_launches}")
     for k, v in lat_launches.items():
-        launches[k] += v + bmmp_launches[k] + ntt_launches[k]
+        launches[k] += (v + bmmp_launches[k] + ntt_launches[k] + conv_launches[k]
+                        + cmux_launches[k])
 
     log(f"phase 4: timing, fusedb NAND at B={MAIN_B} (CUDA events)")
     tv = to_torch_u32(mtv.gate_test_vector(params, "nand"), dev)
@@ -486,7 +570,7 @@ def main() -> int:
     ref = brk.blind_rotate_fused_ref(params, acc0, sk.bk_u32, a_hat, balanced=True)
     torch.cuda.synchronize()
     bk_plain_ms = (time.perf_counter() - t0) * 1e3
-    bk_err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    bk_err = max_abs_err(got, ref)
     # Kernel A at R rows (auto) and at the 3R rows of the bmmp scan, whose key
     # rows are one step's BMMP triple
     ep = {}
@@ -496,8 +580,7 @@ def main() -> int:
             rng.integers(-8, 17, size=(r, b, params.degree), dtype=np.int8)).to(dev)
         ms = cuda_ms(lambda: epk.ep_contract_rbn(digits, rows), 20)
         plain_ms = cuda_ms(lambda: epk.ep_contract_rbn_ref(digits, rows), 5)
-        err = int((epk.ep_contract_rbn(digits, rows).to(torch.int64)
-                   - epk.ep_contract_rbn_ref(digits, rows).to(torch.int64)).abs().max())
+        err = max_abs_err(epk.ep_contract_rbn(digits, rows), epk.ep_contract_rbn_ref(digits, rows))
         ep[r] = (ms, plain_ms, err)
         log(f"  ep_contract_rbn [R={r}, B={b}, N={params.degree}]: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, max_abs_err {err}; card: {card}")
@@ -539,7 +622,7 @@ def main() -> int:
         ref = latk.blind_rotate_latency_ref(params, a0, key, a_v)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        err = max_abs_err(got, ref)
         lat[v, b] = (ms, plain_ms, err)
         log(f"  blind_rotate_latency V={v} B={b} [{key.shape[0]} steps]: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.2f} ms, max_abs_err {err}; plan {latk.last_plan}; card: {card}")
@@ -561,7 +644,7 @@ def main() -> int:
     ref = nttk.blind_rotate_nttf_ref(params, acc0, sk.bk_ntt_lhs, a_hat)
     torch.cuda.synchronize()
     nd_plain_ms = (time.perf_counter() - t0) * 1e3
-    nd_err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    nd_err = max_abs_err(got, ref)
     log(f"  blind_rotate_nttf [B={MAIN_B}, n={params.n}]: kernel {nd_ms:.2f} ms, plain "
         f"{nd_plain_ms:.2f} ms, max_abs_err {nd_err}; plan {plan_d}; card: {card}")
     require(nd_err == 0, "Kernel D disagrees with its twin at the main path's shape")
@@ -589,7 +672,7 @@ def main() -> int:
         ref = twin(params, acc0, sk.bk_u32, a_hat, **options)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        err = max_abs_err(got, ref)
         ws[name] = (ms, plain_ms, err, options.get("key_limbs", 4))
         log(f"  {fn} ({impl}) [B={MAIN_B}, n={params.n}]: kernel {ms:.2f} ms (mean of 2 back "
             f"to back), plain {plain_ms:.2f} ms, max_abs_err {err}; SM clock {len(clocked)} "
@@ -597,13 +680,71 @@ def main() -> int:
     require(all(e == 0 for _, _, e, _ in ws.values()),
             "a whole-scan kernel disagrees with its twin at the main path's shape")
 
-    # bounds at the shapes the timings above ran
+    log(f"phase 4: Kernel H, the conv gate at B={CONV_B}, and the contraction kernels' "
+        "library call (CUDA events)")
     k1, n = params.k + 1, params.degree
     r = k1 * params.pbs_decomposer.levels
     steps = params.n
+    ep_h = {}  # B -> (ms, plain ms, max_abs_err)
+    for b in (CONV_B, CMUX_B):
+        digits = torch.from_numpy(rng.integers(-8, 17, size=(b, r, n), dtype=np.int8)).to(dev)
+        ggsw_0 = sk.bk_u32[0]
+        ms = cuda_ms(lambda: epk.ep_contract(digits, ggsw_0), 20)
+        plain_ms = cuda_ms(lambda: epk.ep_contract_ref(digits, ggsw_0), 5)
+        err = max_abs_err(epk.ep_contract(digits, ggsw_0), epk.ep_contract_ref(digits, ggsw_0))
+        ep_h[b] = (ms, plain_ms, err)
+        log(f"  ep_contract [B={b}, R={r}, N={n}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"max_abs_err {err}; card: {card}")
+    require(all(e == 0 for *_, e in ep_h.values()), "Kernel H disagrees with its twin")
+    conv_ms = cuda_ms(lambda: nand("conv", CONV_B), 2)
+    log(f"  gate conv   B={CONV_B:<3d} {conv_ms:.3f} ms (mean of 2 after a warm-up); card: {card}")
+    # The library call: torch._int_mm(digits [B, R*N], W [R*N, C*4*N]), W the
+    # key's Toeplitz limb form, built once (timed apart).  cuBLAS takes W in
+    # either layout; column-major is its fast one, so that is the yardstick.
+    library = {}  # (kernel, B) -> ms
+    for name, rows, b in (("ep_contract_rbn", sk.bk_lm[0], AUTO_B),
+                          ("ep_contract", sk.bk_u32[0], CONV_B),
+                          ("ep_contract", sk.bk_u32[0], CMUX_B)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w = bk_to_matmul_w(rows)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        w_col = w.t().contiguous().t()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if name == "ep_contract_rbn":
+            d = torch.from_numpy(rng.integers(-8, 17, size=(r, b, n), dtype=np.int8)).to(dev)
+            got = epk.ep_contract_rbn(d, rows)
+            flat = d.transpose(0, 1).reshape(b, r * n)  # a copy, made before the timing
+
+            def as_kernel(acc):
+                return acc.reshape(b, k1, 4, n).permute(1, 2, 0, 3)
+        else:
+            d = torch.from_numpy(rng.integers(-8, 17, size=(b, r, n), dtype=np.int8)).to(dev)
+            got = epk.ep_contract(d, rows)
+            flat = d.reshape(b, r * n)
+
+            def as_kernel(acc):
+                return acc.reshape(b, k1 * 4, n)
+        col_ms = cuda_ms(lambda: torch._int_mm(flat, w_col), 20)
+        row_ms = cuda_ms(lambda: torch._int_mm(flat, w), 20)
+        for layout in (w_col, w):
+            require(torch.equal(as_kernel(torch._int_mm(flat, layout)), got),
+                    f"torch._int_mm differs from {name}'s sums at B={b}")
+        library[name, b] = col_ms
+        log(f"  library torch._int_mm for {name} [B={b}]: {col_ms:.4f} ms with W column-major, "
+            f"{row_ms:.4f} ms row-major; equal to the kernel's sums; W {nbytes(w)} bytes, built "
+            f"in {(t1 - t0) * 1e3:.2f} ms, laid column-major in {(t2 - t1) * 1e3:.2f} ms; "
+            f"card: {card}")
+
+    # bounds at the shapes the timings above ran
     # Kernel A: int8 digits [R, B, N] and one step's rows in, int32 [C, 4, B, N] out
     ep_bound = bound(r * AUTO_B * n * k1 * 4 * n,
                      r * AUTO_B * n + nbytes(sk.bk_lm[0]) + k1 * 4 * AUTO_B * n * 4)
+    # Kernel H: int8 digits [B, R, N] and one GGSW in, int32 [B, C*4, N] out
+    eph_bound = bound(CONV_B * r * n * k1 * 4 * n,
+                      CONV_B * r * n + nbytes(sk.bk_u32[0]) + CONV_B * k1 * 4 * n * 4)
     acc_bytes = 2 * nbytes(acc0) + nbytes(a_hat)  # acc in and out, exponents
     bk_bound = bound(r * n * k1 * n * 4 * steps * MAIN_B, acc_bytes + nbytes(sk.bk_u32))
     b1 = 2 * nbytes(acc0[:1]) + nbytes(a_hat[:, :1])
@@ -617,7 +758,14 @@ def main() -> int:
          "replaces": "tfhe_tpu/ops/pallas/ep_kernel.py:128",
          "launches": launches["ep_contract_rbn"], "max_abs_err": ep_err,
          "ms": ep_ms, "plain_ms": ep_plain_ms, "bound_ms": ep_bound[0],
-         "bound_by": ep_bound[1], "library_ms": None},
+         "bound_by": ep_bound[1], "library_ms": library["ep_contract_rbn", AUTO_B]},
+        {"name": "ep_contract", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/ep_batch_kernel.cu",
+         "replaces": "tfhe_tpu/ops/pallas/ep_kernel.py:66",
+         "launches": launches["ep_contract"],
+         "max_abs_err": max(e for *_, e in ep_h.values()),
+         "ms": ep_h[CONV_B][0], "plain_ms": ep_h[CONV_B][1], "bound_ms": eph_bound[0],
+         "bound_by": eph_bound[1], "library_ms": library["ep_contract", CONV_B]},
         {"name": "blind_rotate_fused", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/blind_rotate_kernel.py:862",

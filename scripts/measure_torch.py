@@ -21,9 +21,15 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
   * Kernels E, F and G (``blind_rotate_fused_pipe``, ``_wide_pipe``,
     ``_cols``) alone at B = 8 .. 2048 and Kernel B at key_limbs=3 at
     B=1024, with their launch plans;
+  * the two contraction kernels, Kernel A (``ep_contract_rbn``, on the
+    key's first level-major GGSW) and Kernel H (``ep_contract``, on its
+    first canonical GGSW), at B = 64 .. 1024, beside their library call
+    ``torch._int_mm`` against the Toeplitz limb form ``bk_to_matmul_w``
+    with W column-major and row-major (W's build timed apart);
   * one NAND gate per impl: fusedb, fused and nttf at B=1024, auto (Kernel A)
-    at B=64 and B=1024, matmul (plain) at B=64, the small-batch impls
-    fusedl, bmmpl, bmmp and fusedb at B <= 64, and nttf, ntt and ntts at B=64;
+    at B=64 and B=1024, conv (Kernel H) and matmul (plain) at B=64, the
+    small-batch impls fusedl, bmmpl, bmmp and fusedb at B <= 64, and nttf,
+    ntt and ntts at B=64;
   * the device busy time of one fusedb and one nttf gate (B=1024), one auto
     gate (B=64) and one fusedl gate (B=1) from ``torch.profiler``, with the
     kernels that took the most of it.
@@ -48,7 +54,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "chiprun_out" / "measure_torch.json"
 KERNEL_B_BATCHES = (8, 64, 256, 512, 1024, 2048)
-GATES = (("fusedb", 1024), ("fused", 1024), ("auto", 64), ("auto", 1024), ("matmul", 64),
+GATES = (("fusedb", 1024), ("fused", 1024), ("auto", 64), ("auto", 1024), ("conv", 64),
+         ("matmul", 64),
          ("fusedl", 1), ("fusedl", 8), ("bmmpl", 1), ("bmmpl", 4), ("bmmp", 64),
          ("fusedb", 1), ("fusedb", 8), ("nttf", 1024), ("nttf", 64), ("ntt", 64), ("ntts", 64),
          ("fusedb3", 1024), ("fusedp", 1024), ("fusedwb", 1024), ("fusedc", 1024))
@@ -57,7 +64,8 @@ GATES = (("fusedb", 1024), ("fused", 1024), ("auto", 64), ("auto", 1024), ("matm
 SCHEDULES = (("kernelE_fusedp", "blind_rotate_fused_pipe", {}),
              ("kernelF_fusedwb", "blind_rotate_fused_wide_pipe", {"balanced": True}),
              ("kernelG_fusedc", "blind_rotate_fused_cols", {}))
-PROFILED = (("fusedb", 1024), ("nttf", 1024), ("auto", 64), ("fusedl", 1))
+PROFILED = (("fusedb", 1024), ("nttf", 1024), ("auto", 64), ("conv", 64), ("fusedl", 1))
+EP_BATCHES = (64, 256, 1024)  # batches of the contraction kernels and their library call
 IMAD_PER_CLK_PER_SM = 64  # Hopper's INT32 multiply-add lanes per SM
 
 
@@ -159,8 +167,10 @@ def main() -> int:
     from tfhe_tpu_torch.models import bootstrap as mboot
     from tfhe_tpu_torch.models import test_vector as mtv
     from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
+    from tfhe_tpu_torch.ops.cuda import ep_kernel as epk
     from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
     from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
+    from tfhe_tpu_torch.ops.poly import bk_to_matmul_w
     from tfhe_tpu_torch.ops.torus import switch_modulus, to_torch_u32
 
     card = subprocess.run(
@@ -296,6 +306,31 @@ def main() -> int:
     t = event_rounds(lambda: brk.blind_rotate_fused(p, acc0, sk.bk_u32, a_hat, True, 3), 3)
     res["kernelB_fusedb3_B1024_ms"] = t
     log(f"Kernel B fusedb3 (key_limbs=3) B=1024: ms {t}")
+
+    # Kernels A and H beside their library call: torch._int_mm of the digits
+    # [B, R*N] against W = bk_to_matmul_w(GGSW), int8 [R*N, C*4*N]
+    r, n = (p.k + 1) * p.pbs_decomposer.levels, p.degree
+    for name, rows in (("kernelA", sk.bk_lm[0]), ("kernelH", sk.bk_u32[0])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w = bk_to_matmul_w(rows)
+        torch.cuda.synchronize()
+        res[f"{name}_w_build_s"] = time.perf_counter() - t0
+        w_col = w.t().contiguous().t()
+        for b in EP_BATCHES:
+            if name == "kernelA":
+                d = torch.from_numpy(rng.integers(-8, 17, size=(r, b, n), dtype=np.int8)).to(dev)
+                flat = d.transpose(0, 1).reshape(b, r * n)
+                res[f"{name}_B{b}_ms"] = event_rounds(lambda: epk.ep_contract_rbn(d, rows), 5)
+            else:
+                d = torch.from_numpy(rng.integers(-8, 17, size=(b, r, n), dtype=np.int8)).to(dev)
+                flat = d.reshape(b, r * n)
+                res[f"{name}_B{b}_ms"] = event_rounds(lambda: epk.ep_contract(d, rows), 5)
+            res[f"{name}_B{b}_int_mm_w_col_ms"] = event_rounds(lambda: torch._int_mm(flat, w_col), 5)
+            res[f"{name}_B{b}_int_mm_w_row_ms"] = event_rounds(lambda: torch._int_mm(flat, w), 5)
+            log(f"{name} B={b}: kernel ms {res[f'{name}_B{b}_ms']}, torch._int_mm ms "
+                f"{res[f'{name}_B{b}_int_mm_w_col_ms']} (W column-major), "
+                f"{res[f'{name}_B{b}_int_mm_w_row_ms']} (row-major)")
 
     for impl, b in GATES:
         t = event_rounds(lambda: tfhe.gates.nand(sk, ca[:b], cb[:b], impl=impl),

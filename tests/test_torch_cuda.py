@@ -49,6 +49,90 @@ def test_ep_kernel_matches_twin_on_card(cuda_device, name, batch):
     assert torch.equal(got, epk.ep_contract_rbn_ref(d, g))
 
 
+def ep_batch_inputs(name, batch, key, seed):
+    """Batch-major digits and one random GGSW on the card; ``key='0x80'``
+    gives every byte of the GGSW the value 0x80 (where negating after the
+    limb split would be wrong)."""
+    p = get_params(name)
+    k1, n = p.glwe_dimension + 1, p.degree
+    r = k1 * p.pbs_decomposer.levels
+    rng = np.random.default_rng(seed)
+    d = torch.from_numpy(rng.integers(-8, 17, size=(batch, r, n), dtype=np.int8)).to("cuda")
+    words = (np.full((r, k1, n), 0x80808080, np.uint32) if key == "0x80"
+             else rnd_u32(rng, (r, k1, n)))
+    return d, to_torch_u32(words, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch,key", [
+    ("nano", 1, "random"), ("nano", 7, "random"), ("test_insecure", 64, "random"),
+    ("nano", 7, "0x80"), ("test_insecure", 7, "0x80")])
+def test_ep_batch_kernel_matches_twin_on_card(cuda_device, name, batch, key):
+    """Kernel H against its twin, one launch each."""
+    d, g = ep_batch_inputs(name, batch, key, seed=45 + batch)
+    before = epk.BATCH_KERNEL.launches
+    got = epk.ep_contract(d, g)
+    torch.cuda.synchronize()
+    assert epk.BATCH_KERNEL.launches == before + 1
+    assert torch.equal(got, epk.ep_contract_ref(d, g))
+
+
+@pytest.mark.cuda
+def test_ep_batch_kernel_refuses_unsupported_shapes_on_card(cuda_device):
+    """N=12 is not a power of two, N=4 is below 8: Kernel H's C entry point
+    returns cudaErrorInvalidValue, the wrapper raises and counts no launch."""
+    rng = np.random.default_rng(46)
+    before = epk.BATCH_KERNEL.launches
+    for n in (12, 4):
+        d = torch.from_numpy(rng.integers(-8, 17, size=(3, 2, n), dtype=np.int8)).to(cuda_device)
+        g = to_torch_u32(rnd_u32(rng, (2, 2, n)), cuda_device)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            epk.ep_contract(d, g)
+    assert epk.BATCH_KERNEL.launches == before
+
+
+@pytest.mark.cuda
+def test_external_product_conv_launches_kernel_h_on_card(cuda_device, monkeypatch):
+    """'conv' on CUDA tensors goes through Kernel H, never the twin, and
+    equals 'matmul' (the plain reference) bit for bit."""
+    from tfhe_tpu_torch.models import ggsw
+
+    p = get_params("test_insecure")
+    rng = np.random.default_rng(47)
+    k1, n = p.glwe_dimension + 1, p.degree
+    g = to_torch_u32(rnd_u32(rng, (k1 * p.pbs_decomposer.levels, k1, n)), cuda_device)
+    c0, c1 = (to_torch_u32(rnd_u32(rng, (33, k1, n)), cuda_device) for _ in range(2))
+    want = ggsw.cmux(g, c0, c1, p, impl="matmul")
+    monkeypatch.setattr(epk, "ep_contract_ref", lambda *a: pytest.fail("the twin ran"))
+    before = epk.BATCH_KERNEL.launches
+    got = ggsw.cmux(g, c0, c1, p, impl="conv")
+    torch.cuda.synchronize()
+    assert epk.BATCH_KERNEL.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_conv_scan_launches_kernel_h_per_step_on_card(cuda_device):
+    """The 'conv' blind rotation launches Kernel H once per step and equals
+    the 'matmul' scan."""
+    from tfhe_tpu_torch.models import bootstrap
+
+    p = get_params("test_insecure")
+    rng = np.random.default_rng(48)
+    k1, n = p.glwe_dimension + 1, p.degree
+    acc0 = to_torch_u32(rnd_u32(rng, (5, k1, n)), cuda_device)
+    bk = to_torch_u32(rnd_u32(rng, (p.lwe_dimension, k1 * p.pbs_decomposer.levels, k1, n)),
+                      cuda_device)
+    a_hat = torch.from_numpy(
+        rng.integers(0, 2 * n, size=(p.lwe_dimension, 5), dtype=np.int32)).to(cuda_device)
+    before = (epk.BATCH_KERNEL.launches, epk.KERNEL.launches)
+    got = bootstrap.rotate_chunk(p, acc0, bk, a_hat, "conv")
+    torch.cuda.synchronize()
+    assert (epk.BATCH_KERNEL.launches, epk.KERNEL.launches) == (
+        before[0] + p.lwe_dimension, before[1])
+    assert torch.equal(got, bootstrap.rotate_chunk(p, acc0, bk, a_hat, "matmul"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("balanced", [False, True], ids=["fused", "fusedb"])
 @pytest.mark.parametrize("name,batch", [("nano", 3), ("test_insecure", 7)])

@@ -219,5 +219,6 @@ def test_resolve_impl():
     assert tboot.resolve_impl("auto", "cpu") == "matmul"
     assert tboot.resolve_impl("auto", torch.device("cuda")) == "pallas"
     assert tboot.resolve_impl("fusedb", "cpu") == "fusedb"
+    assert tboot.resolve_impl("conv", "cpu") == "conv"  # Kernel H's scan
     with pytest.raises(ValueError):
-        tboot.resolve_impl("conv", "cpu")  # JAX-only backend
+        tboot.resolve_impl("conv_interpret", "cpu")  # JAX-only interpret mode

@@ -56,7 +56,7 @@ def insecure():
     return p, jsk, tp, tck, tsk, cts, msgs
 
 
-@pytest.mark.parametrize("impl", ["matmul", "pallas", "fused"])
+@pytest.mark.parametrize("impl", ["conv", "matmul", "pallas", "fused"])
 def test_pbs_matches_jax_conv(insecure, impl):
     p, jsk, tp, tck, tsk, cts, msgs = insecure
     tv = jtv.identity_test_vector(p)
@@ -107,7 +107,7 @@ def test_jax_key_gives_same_gate_ciphertexts(insecure):
                                np.asarray(jck.glwe_sk), np.asarray(jsk.bk_u32),
                                np.asarray(jsk.ksk_u32), device="cpu")
     ta, tb = to_torch_u32(np.asarray(a)), to_torch_u32(np.asarray(b))
-    for impl in ("matmul", "fused"):
+    for impl in ("conv", "matmul", "fused"):
         got = ttfhe.gates.nand(tsk, ta, tb, impl=impl)
         assert np.array_equal(to_numpy_u32(got), want), impl
     assert np.array_equal(to_numpy_u32(ttfhe.decrypt(tck, got)), 1 - (BITS_A & BITS_B))

@@ -213,10 +213,13 @@ def test_truncated_impls_decode_nand(insecure, impl):
 
 
 def test_valid_impls_mirror_jax():
-    """The JAX package's impls, in its order, less 'conv' and the
-    interpret modes (the CPU twins play their role)."""
-    want = tuple(i for i in jboot.VALID_IMPLS if i != "conv" and not i.endswith("_interpret"))
+    """The JAX package's impls, in its order, less the interpret modes (the
+    CPU twins play their role); 'conv' resolves to itself."""
+    want = tuple(i for i in jboot.VALID_IMPLS if not i.endswith("_interpret"))
     assert tboot.VALID_IMPLS == want
+    assert tboot.resolve_impl("conv", "cpu") == "conv"
+    with pytest.raises(ValueError):
+        tboot.resolve_impl("conv_interpret", "cpu")
     for impl in ("fused3", "fusedb3", "fusedp", "fusedp3", "fusedw", "fusedwb", "fusedc",
                  "fusedc3"):
         assert tboot.resolve_impl(impl, "cpu") == impl

@@ -1,0 +1,41 @@
+// Kernel H: the batch-major external-product contraction, int8 digits x one
+// GGSW -> int32 limb sums.
+//
+// Replaces: tfhe_tpu/ops/pallas/ep_kernel.py, ep_contract_pallas (body
+// _ep_kernel).  It computes, exactly,
+//
+//   out[b, c*4 + l, o] = sum_{r, m} d[b, r, m] * limb_l( +-g[r, c, (o - m) mod N] )
+//
+// Shapes: d int8 [B, R, N], g u32 [R, C, N], out int32 [B, C*4, N]: the
+// layout of the GGSW external product (models/ggsw.py) and of the 'conv'
+// blind-rotation scan.  What bounds it and the design (Kernel A's, with the
+// batch-major digit and output indexing) are in ep_contract.cuh.
+
+#include "ep_contract.cuh"
+
+namespace {
+
+__global__ void ep_contract_kernel(const int8_t* __restrict__ digits,
+                                   const uint32_t* __restrict__ rows,
+                                   int32_t* __restrict__ out,
+                                   int R, int B, int C, int N) {
+  // digit row (r, b) at (b*R + r)*N; output row (f, b) at (b*4C + f)*N
+  ep::contract(digits, rows, out, R, B, C, N, ep::Layout{1, R, 1, 4 * C});
+}
+
+}  // namespace
+
+extern "C" {
+
+// digits int8 [B, R, N], ggsw u32 [R, C, N] -> out int32 [B, C*4, N].
+// Returns cudaErrorInvalidValue unless N is a power of two >= 8 and B, C >= 1.
+int ep_contract(const void* digits, const void* ggsw, void* out, int R, int B, int C,
+                int N, void* stream) {
+  return ep::launch(ep_contract_kernel, digits, ggsw, out, R, B, C, N, stream);
+}
+
+const char* tfhe_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -12,8 +12,17 @@ Pipeline (src/bootstrapping.rs:58-120):
 Blind-rotation backends, all exact mod 2^32 but the truncated-key modes
 (``*3``):
 
-  * ``matmul`` — the plain scan: a Python loop over the steps, Toeplitz
-    matmul contraction (counterpart of ``rotate_chunk_xla``).  Runs anywhere.
+  * ``conv`` — the scan of JAX's ``conv`` backend (``rotate_chunk_xla``): a
+    Python loop over the steps, batch-major digits [B, R, N], and each
+    step's contraction in Kernel H (``ops/cuda/ep_kernel.py:ep_contract``)
+    against the step's canonical ``bk_u32`` rows.  JAX's ``conv`` reads
+    ``ServerKey.bk_conv`` (int8, kernel-reversed limbs of the key); Kernel H
+    stages the sign-twisted limbs itself, so the port's ``ServerKey`` has no
+    ``bk_conv`` (80 MB at default_128) and the pipeline stages pass
+    ``bk_u32`` slices for 'conv'.
+  * ``matmul`` — the same scan with the plain Toeplitz matmul contraction
+    (``rotate_chunk_xla``'s other branch).  Runs anywhere: the explicit
+    reference.
   * ``pallas`` — the same loop with the transpose-free [k+1, B, N]
     accumulator, level-major digit rows and ``ServerKey.bk_lm``; each step's
     contraction is Kernel A (``ops/cuda/ep_kernel.py``).  Default on CUDA.
@@ -50,8 +59,7 @@ raises ``ValueError`` naming the function that attaches it.
 
 On CPU tensors the kernel backends run their kernels' plain twins.  They
 play the role of the JAX package's ``*_interpret`` impls (the Pallas kernel
-run on the CPU), which have no counterpart here, and ``matmul`` plays that
-of its ``conv`` scan.
+run on the CPU), which have no counterpart here.
 """
 
 from __future__ import annotations
@@ -60,19 +68,20 @@ import torch
 
 from tfhe_tpu_torch.models import glwe as mglwe
 from tfhe_tpu_torch.models import keyswitch as mks
+from tfhe_tpu_torch.models.ggsw import EP_CONTRACTIONS
 from tfhe_tpu_torch.ops import ntt
 from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
 from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
 from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
 from tfhe_tpu_torch.ops.cuda.ep_kernel import ep_contract_rbn
 from tfhe_tpu_torch.ops.decomposer import decompose_signed_planes
-from tfhe_tpu_torch.ops.poly import ep_combine, ep_combine_planes, ep_contract_matmul, monomial_mul
+from tfhe_tpu_torch.ops.poly import ep_combine, ep_combine_planes, monomial_mul
 from tfhe_tpu_torch.ops.torus import switch_modulus, u32
 from tfhe_tpu_torch.params import TfheParams
 
 #: every backend string ``blind_rotate`` accepts: the JAX package's, in its
-#: order, less ``conv`` and the ``*_interpret`` modes
-VALID_IMPLS = ("auto", "matmul", "pallas", "fused", "fused3", "fusedb", "fusedb3",
+#: order, less the ``*_interpret`` modes
+VALID_IMPLS = ("auto", "conv", "matmul", "pallas", "fused", "fused3", "fusedb", "fusedb3",
                "fusedc", "fusedc3", "fusedp", "fusedp3", "fusedw", "fusedwb",
                "bmmp", "ntt", "ntts", "nttf", "fusedl", "bmmpl")
 
@@ -148,14 +157,18 @@ def _init_acc(params: TfheParams, approx_ct, tv_encoded):
     return acc0, a_hat
 
 
-def rotate_chunk_matmul(params: TfheParams, acc, bk_chunk, a_chunk) -> torch.Tensor:
-    """Plain CMUX steps over a key chunk: acc u32[B, k+1, N], bk_chunk
-    u32[steps, R, k+1, N] (canonical rows), a_chunk int32[steps, B]."""
+def rotate_chunk_batch_major(params: TfheParams, acc, bk_chunk, a_chunk,
+                             impl: str) -> torch.Tensor:
+    """CMUX steps over a key chunk with the batch-major contraction of
+    ``impl`` ('conv': Kernel H, its twin on CPU tensors; 'matmul': plain):
+    acc u32[B, k+1, N], bk_chunk u32[steps, R, k+1, N] (canonical rows),
+    a_chunk int32[steps, B]."""
+    contract = EP_CONTRACTIONS[impl]
     k1 = params.glwe_dimension + 1
     for bk_i, a_i in zip(bk_chunk, a_chunk):
         rot = mglwe.mul_monomial(acc, a_i)  # acc * X^{a_i}
         digits = mglwe.decompose(rot - acc, params.pbs_decomposer)  # [B, R, N]
-        acc = acc + ep_combine(ep_contract_matmul(digits, bk_i), k1)
+        acc = acc + ep_combine(contract(digits, bk_i), k1)
     return acc
 
 
@@ -189,6 +202,20 @@ def rotate_chunk_ntt(params: TfheParams, acc, bk_chunk, a_chunk, stream: bool = 
         digits = mglwe.decompose(rot - acc, params.pbs_decomposer)  # [B, R, N]
         acc = acc + ntt.ep_contract_ntt(digits, bk_i, plan, k1)
     return acc
+
+
+def rotate_chunk(params: TfheParams, acc, bk_chunk, a_chunk, impl: str) -> torch.Tensor:
+    """Backend-generic rotation chunk, [B, k+1, N] acc in and out (the chunk
+    the pipeline stages run).  ``bk_chunk`` is the matching key form: a slice
+    of ``bk_u32`` for 'matmul' and 'conv', of ``bk_lm`` for 'pallas', of
+    ``bk_ntt`` for 'ntt'.  Any other impl raises ``ValueError``."""
+    if impl == "pallas":
+        return rotate_chunk_pallas(params, acc, bk_chunk, a_chunk)
+    if impl == "ntt":
+        return rotate_chunk_ntt(params, acc, bk_chunk, a_chunk)
+    if impl in EP_CONTRACTIONS:
+        return rotate_chunk_batch_major(params, acc, bk_chunk, a_chunk, impl)
+    raise ValueError(f"rotate_chunk runs 'matmul', 'conv', 'pallas' or 'ntt', got {impl!r}")
 
 
 def _bmmp_exponents(params: TfheParams, a_hat):
@@ -274,7 +301,7 @@ def blind_rotate(params: TfheParams, approx_ct, server_key, tv_encoded,
         return rotate_chunk_ntt(params, acc0, server_key.bk_u32, a_hat, stream=True)
     if impl == "pallas":
         return rotate_chunk_pallas(params, acc0, server_key.bk_lm, a_hat)
-    return rotate_chunk_matmul(params, acc0, server_key.bk_u32, a_hat)
+    return rotate_chunk_batch_major(params, acc0, server_key.bk_u32, a_hat, impl)
 
 
 def pbs(params: TfheParams, ct, server_key, tv_encoded, impl: str = "auto") -> torch.Tensor:

@@ -7,6 +7,13 @@ Toeplitz expansion of the u32 side is an exact small-integer matmul
 (``torus.int_matmul``), recombined with wrapping shifts.  These functions are
 the plain twins the CUDA kernels under ``ops/cuda/`` are held against.
 
+The external-product contraction has the JAX package's two formulations:
+``ep_contract_matmul`` (explicit Toeplitz expansion of the key, the sign
+twisted in u32 before the limb split; the twin of Kernels A and H) and
+``ep_contract_conv`` (one convolution over the negacyclically extended
+digits against the kernel-reversed key limbs).  Their raw limb sums differ
+where the sign lands; after ``ep_combine`` they agree mod 2^32.
+
 u32 values are int32 tensors (see ``ops/torus.py``).
 """
 
@@ -42,9 +49,21 @@ def monomial_mul(poly, exp) -> torch.Tensor:
     return torch.where(torch.remainder(src, 2 * n) >= n, -out, out)
 
 
-def _toeplitz_index(n: int, device):
+def monomial_mul_custom_mod(poly, exp, log_modulus: int) -> torch.Tensor:
+    """``monomial_mul`` with coefficients reduced mod 2^log_modulus
+    (src/utils.rs:209-219: poly_mul_monomial_custom_mod); for API parity."""
+    out = monomial_mul(poly, exp)
+    if log_modulus < 32:
+        out = out & ((1 << log_modulus) - 1)
+    return out
+
+
+def _toeplitz_index(n: int, device, o_start=0, n_cols: int | None = None):
+    """Index and sign mask of T[m, oo] = +-p[(o-m)%N] for the output columns
+    o = o_start + oo, oo in [0, n_cols) (all N columns by default)."""
     m = torch.arange(n, device=device)[:, None]
-    o = torch.arange(n, device=device)[None, :]
+    o = torch.as_tensor(o_start, device=device).to(torch.int64) + torch.arange(
+        n if n_cols is None else n_cols, device=device)[None, :]
     return torch.remainder(o - m, n), m <= o
 
 
@@ -56,6 +75,16 @@ def sign_toeplitz_u32(p_u32) -> torch.Tensor:
     """
     p = u32(p_u32)
     idx, keep = _toeplitz_index(p.shape[-1], p.device)
+    t = p[..., idx]
+    return torch.where(keep, t, -t)
+
+
+def sign_toeplitz_u32_cols(p_u32, o_start, n_cols: int) -> torch.Tensor:
+    """Column slice of ``sign_toeplitz_u32``: T[m, oo] = +-p[(o-m)%N] for
+    o = o_start+oo, oo in [0, n_cols).  ``o_start`` is an int or a 0-d
+    tensor (the shard offset in the coefficient-sharded external product)."""
+    p = u32(p_u32)
+    idx, keep = _toeplitz_index(p.shape[-1], p.device, o_start, n_cols)
     t = p[..., idx]
     return torch.where(keep, t, -t)
 
@@ -78,6 +107,56 @@ def negacyclic_matvec_u32_small(a_u32, t_small) -> torch.Tensor:
     return combine_limb_accs(acc.movedim(-2, -1))
 
 
+def poly_mul_u32(a, b) -> torch.Tensor:
+    """General exact u32 negacyclic product (API parity with src/utils.rs:155-160).
+
+    Both operands full u32: 4x4 signed-limb products keeping i+j<4 (mod 2^32),
+    the sign twist applied to ``b`` in u32 before its limb split.  Not on any
+    hot path (TFHE products always have a small side).
+    """
+    la = to_signed_limbs(a)  # [..., N, 4]
+    tb = to_signed_limbs(sign_toeplitz_u32(b))  # [..., N, N, 4]
+    res = torch.zeros(la.shape[:-1], dtype=torch.int32, device=la.device)
+    for j in range(NUM_LIMBS):
+        for i in range(NUM_LIMBS - j):
+            acc = int_matmul(la[..., None, :, i], tb[..., j])[..., 0, :]
+            res = res + (acc << (8 * (i + j)))
+    return res
+
+
+def negacyclic_extend(d) -> torch.Tensor:
+    """[..., N] -> [..., 2N] = concat([-d, d]): negacyclic conv becomes VALID conv."""
+    return torch.cat([-d, d], dim=-1)
+
+
+def bk_u32_limbs_to_ocin(limbs) -> torch.Tensor:
+    """[..., R, C, N, L] -> [..., C*L, R, N] int8."""
+    x = limbs.movedim(-1, -3).transpose(-4, -2)  # [..., C, L, R, N]
+    shape = x.shape[:-4] + (x.shape[-4] * x.shape[-3],) + x.shape[-2:]
+    return x.reshape(shape).to(torch.int8)
+
+
+def bk_to_conv_kernel(bk_u32) -> torch.Tensor:
+    """GGSW u32[..., R, C, N] -> conv-ready int8[..., C*4, R, N], kernel-reversed,
+    out channel f = c*4 + limb (the JAX package's ``ServerKey.bk_conv`` form)."""
+    return torch.flip(bk_u32_limbs_to_ocin(to_signed_limbs(bk_u32)), dims=(-1,))
+
+
+def ep_contract_conv(digits_i8, bk_kernel_i8) -> torch.Tensor:
+    """The contraction as one VALID convolution over the negacyclically
+    extended digits: digits int8[B, R, N] x ``bk_to_conv_kernel`` int8[F, R, N]
+    -> int32[B, F, N], out[b,f,o] = sum_{r,m} +-digits[b,r,(o-m)%N] * limb_f(g[r,m]).
+
+    The sign rides on the digits, not on the key word, so the raw sums differ
+    from ``ep_contract_matmul``'s; after ``ep_combine`` they agree mod 2^32.
+    The convolution runs in float64, exact while every sum stays below 2^53.
+    """
+    n = digits_i8.shape[-1]
+    lhs = negacyclic_extend(digits_i8.to(torch.float64))  # [B, R, 2N]
+    out = torch.nn.functional.conv1d(lhs, bk_kernel_i8.to(torch.float64))  # [B, F, N+1]
+    return out[..., 1:n + 1].to(torch.int64).to(torch.int32)
+
+
 def bk_to_matmul_w(bk_u32, key_limbs: int = NUM_LIMBS) -> torch.Tensor:
     """GGSW u32[R, C, N] -> Toeplitz weights int8[R*N(m), C*4*N(o)].
 
@@ -88,13 +167,25 @@ def bk_to_matmul_w(bk_u32, key_limbs: int = NUM_LIMBS) -> torch.Tensor:
     """
     if key_limbs not in (3, NUM_LIMBS):
         raise ValueError(f"key_limbs is 4 (exact) or 3 (truncated), got {key_limbs}")
-    t = sign_toeplitz_u32(bk_u32)  # [R, C, m, o]
-    limbs = to_signed_limbs(t)  # [R, C, m, o, L]
+    return _toeplitz_to_w(sign_toeplitz_u32(bk_u32), key_limbs)
+
+
+def bk_to_matmul_w_cols(bk_u32, o_start, n_cols: int) -> torch.Tensor:
+    """Column-sliced Toeplitz weights int8[R*N(m), C*4*n_cols(o)]: the local
+    shard of ``bk_to_matmul_w`` for output coefficients [o_start,
+    o_start+n_cols).  Needs the full key rows (every output coefficient
+    touches every input coefficient of g)."""
+    return _toeplitz_to_w(sign_toeplitz_u32_cols(bk_u32, o_start, n_cols))
+
+
+def _toeplitz_to_w(t, key_limbs: int = NUM_LIMBS) -> torch.Tensor:
+    """Sign-twisted u32 [R, C, m, cols] -> limb weights int8[R*m, C*4*cols]."""
+    limbs = to_signed_limbs(t)  # [R, C, m, cols, L]
     if key_limbs == 3:
         limbs[..., 0] = 0
-    limbs = limbs.movedim(-1, -2).transpose(1, 2)  # [R, m, C, L, o]
-    r, c, n = bk_u32.shape
-    return limbs.reshape(r * n, c * NUM_LIMBS * n)
+    limbs = limbs.movedim(-1, -2).transpose(1, 2)  # [R, m, C, L, cols]
+    r, n = limbs.shape[:2]
+    return limbs.reshape(r * n, -1)
 
 
 def ep_contract_matmul(digits_i8, bk_u32, key_limbs: int = NUM_LIMBS) -> torch.Tensor:
@@ -103,16 +194,26 @@ def ep_contract_matmul(digits_i8, bk_u32, key_limbs: int = NUM_LIMBS) -> torch.T
     out[b,(c,l),o] = sum_{r,m} digits[b,r,m] * limb_l(+-g[r,c,(o-m)%N])
     (limb 0 taken as 0 when ``key_limbs=3``).
 
-    The Toeplitz expansion is built per call and shared across the batch;
-    the product runs one column block at a time to bound the float64 copy.
+    The Toeplitz expansion is built per call and shared across the batch.
     """
+    return _contract_w(digits_i8, bk_to_matmul_w(bk_u32, key_limbs), bk_u32.shape[1])
+
+
+def ep_contract_matmul_cols(digits_i8, bk_u32, o_start, n_cols: int) -> torch.Tensor:
+    """Coefficient shard of ``ep_contract_matmul``: int32[B, C*4, n_cols]
+    limb accumulators for output coefficients [o_start, o_start+n_cols)."""
+    return _contract_w(digits_i8, bk_to_matmul_w_cols(bk_u32, o_start, n_cols),
+                       bk_u32.shape[1])
+
+
+def _contract_w(digits_i8, w, c: int) -> torch.Tensor:
+    """digits int8[B, R, N] x W int8[R*N, C*4*cols] -> int32[B, C*4, cols],
+    one column block at a time to bound the float64 copy."""
     b = digits_i8.shape[0]
-    r, n = digits_i8.shape[-2:]
-    c = bk_u32.shape[1]
-    w = bk_to_matmul_w(bk_u32, key_limbs).view(r * n, c, NUM_LIMBS * n)
-    flat = digits_i8.reshape(b, r * n)
+    w = w.view(w.shape[0], c, -1)
+    flat = digits_i8.reshape(b, w.shape[0])
     acc = torch.stack([int_matmul(flat, w[:, j]) for j in range(c)], dim=1)
-    return acc.reshape(b, c * NUM_LIMBS, n)
+    return acc.reshape(b, c * NUM_LIMBS, -1)
 
 
 def ep_combine(acc_i32, k_plus_1: int) -> torch.Tensor:
