@@ -10,7 +10,9 @@ failure, so the script exits nonzero and prints no result line.
 
   0. require CUDA; print the card, its power limit, torch and CUDA versions;
   1. build the kernels, all nvcc processes at once (one per source, eight),
-     with the build seconds and ptxas' resource report;
+     with the build seconds and ptxas' resource report, and count the IMMA
+     (integer tensor-core) instructions of Kernels A and H with
+     ``cuobjdump -sass``: there must be some;
   2. hold each kernel against its plain PyTorch twin (``torch.equal``) at
      nano, test_insecure and a 16-step slice of the default_128 key (Kernel C
      in both forms: V=1 and the BMMP V=3; Kernel D also on an all-ones
@@ -18,7 +20,10 @@ failure, so the script exits nonzero and prints no result line.
      key_limbs=3 and Kernels E, F and G in all their modes, also on a key
      whose every low byte is 0x80, the truncated key's hard case; Kernel H
      at B=1, 7, 64, on a key whose every byte is 0x80, and on one GGSW of
-     the default_128 key at B=64 and 1024);
+     the default_128 key at B=64 and 1024; Kernels A and H on full-range
+     int8 digits at B=1, 7, 17, 64, 65, 1024, at the bmmp scan's 3R rows,
+     at large_2048, on all-0x80 keys, with plans forced to no row split
+     and to the largest, and with one digit buffer and 2 warps per CTA);
   3. seven paths at default_128 through the public API (keygen with the BMMP
      key, the latency key and both NTT key forms, whose seconds and peak
      device memory it prints; encrypt, NAND, decrypt), each with the launch
@@ -46,16 +51,18 @@ failure, so the script exits nonzero and prints no result line.
      right, and each path must have launched its kernels;
   4. time 'fusedb' at B=1024 with CUDA events, with the SM clock sampled by
      nvidia-smi meanwhile (``scripts/measure_torch.py:sampled_clocks``), then
-     each kernel against its twin at the main paths' shapes (Kernel A at R
-     and at the bmmp scan's 3R rows), then the small-batch gates, the 8-bit
-     add, Kernel C against its twin at B=1, B=8 (V=1) and B=4 (V=3), then
+     Kernel B against its twin at the main path's shape, then the
+     small-batch gates, the 8-bit add, Kernel C against its twin at B=1,
+     B=8 (V=1) and B=4 (V=3), then
      the 'nttf' gate at B=1024 with the SM clock sampled, Kernel D against
      its twin at [B=1024, 722 steps], and the 'ntt' and 'ntts' gates at B=64,
      then the eight whole-scan variant gates at B=1024, and Kernel B at
      key_limbs=3 and Kernels E, F and G, each timed with the SM clock
-     sampled and held against its twin at [B=1024, 722 steps], then Kernel H
-     and its twin at B=64 and 1024, the 'conv' gate at B=64, and the library
-     call of the two contraction kernels (below).
+     sampled and held against its twin at [B=1024, 722 steps], then
+     Kernel A at [R=18; B=1, 8, 64, 1024] and [3R=54; B=64] and Kernel H at
+     B=64, 256 and 1024, each with its plan, its SM clock, its twin, its
+     library call (below) and its bound, timed as CUDA graphs of EP_GRAPH
+     calls, and the 'conv' gate at B=64.
 
 The line before the last is the kernels' JSON record, each kernel with its
 bound: the larger of its operations (int8 multiply-adds as the TPU kernel
@@ -66,7 +73,8 @@ kernels' functions (Kernels A and H): ``torch._int_mm`` of the digits,
 flattened to [B, R*N], against the key's Toeplitz limb form
 ``bk_to_matmul_w`` (int8 [R*N, C*4*N], built once and kept column-major,
 cuBLAS's fastest layout for it); its time is their ``library_ms``, held
-equal to the kernels' sums.  No single call computes the whole-scan
+equal to the kernels' sums.  Their entries also carry the ``plan`` of the
+B=64 launch.  No single call computes the whole-scan
 kernels' functions, so theirs is null.  The last line is ``{"ok": true,
 "device": {...}}``.  It imports neither JAX nor ``tfhe_tpu``.
 """
@@ -92,6 +100,7 @@ ADD_W = 8  # width of the encrypted add on the latency path
 NTT_B = 64  # batch of the plain block-NTT scans 'ntt' and 'ntts'
 CONV_B = 64  # batch of the 'conv' scan gate (Kernel H per step)
 CMUX_B = 1024  # GLWE ciphertexts of the GGSW path's cmux (one Kernel H launch)
+EP_GRAPH = 50  # contraction calls per CUDA graph when timing Kernels A and H
 #: H100 SXM data sheet: int8 tensor cores 1979e12 ops/s (2 per multiply-add),
 #: HBM 3.35e12 bytes/s
 INT8_MACS_PER_S = 1979e12 / 2
@@ -155,7 +164,17 @@ def phase0() -> str:
     return card
 
 
-def phase1(kernels) -> None:
+def imma_count(lib: Path) -> int:
+    """The IMMA (integer tensor-core mma) instructions in a built library,
+    from ``cuobjdump -sass`` of the toolkit that built it."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    return sum("IMMA" in ln for ln in sass.splitlines())
+
+
+def phase1(kernels, tensor_core_kernels) -> None:
     log("phase 1: build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
@@ -165,6 +184,11 @@ def phase1(kernels) -> None:
         report = [ln.strip() for ln in k.ptxas_report.splitlines()
                   if "registers" in ln or "spill" in ln]
         log(f"  {k.source}: " + " | ".join(report))
+    for k in tensor_core_kernels:
+        count = imma_count(k.path)
+        log(f"  {k.source}: {count} IMMA instructions (cuobjdump -sass)")
+        require(count > 0, f"{k.source} holds no IMMA instruction: its sums are not on the "
+                           "tensor cores")
 
 
 def phase2(epk, brk, get_params, to_torch_u32, params, sk, dev) -> None:
@@ -292,6 +316,145 @@ def phase2_ep_batch(epk, get_params, to_torch_u32, params, sk, dev) -> None:
     torch.cuda.synchronize()
 
 
+def phase2_ep_edges(epk, get_params, to_torch_u32, dev) -> None:
+    """Kernels A and H against their twins at their edges, on full-range
+    int8 digits (-128..127): test_insecure at B = 1, 7, 17, 64, 65 and 1024
+    (partial and several M tiles), the bmmp scan's 3R rows, large_2048
+    (C=2, N=2048) and large_4096 (N=4096, one digit buffer) at B=3, keys
+    whose every byte is 0x80, plans forced to no row split (a card of 1 SM)
+    and to the largest (10,000 SMs), and one digit buffer with 2 warps per
+    CTA."""
+    import ctypes
+
+    from tfhe_tpu_torch.ops.cuda._build import ptr, stream_of
+
+    rng = np.random.default_rng(10)
+    kernels = {"A": (epk.ep_contract_rbn, epk.ep_contract_rbn_ref, epk.KERNEL),
+               "H": (epk.ep_contract, epk.ep_contract_ref, epk.BATCH_KERNEL)}
+
+    def check(name, b, kind, row_mult, what=""):
+        p = get_params(name)
+        k1, n = p.glwe_dimension + 1, p.degree
+        r = k1 * p.pbs_decomposer.levels * row_mult
+        words = (np.full((r, k1, n), 0x80808080, np.uint32) if kind == "0x80"
+                 else rnd_u32(rng, (r, k1, n)))
+        g = to_torch_u32(words, dev)
+        for tag, (fn, twin, kernel) in kernels.items():
+            shape = (r, b, n) if tag == "A" else (b, r, n)
+            d = torch.from_numpy(rng.integers(-128, 128, size=shape, dtype=np.int8)).to(dev)
+            require(torch.equal(fn(d, g), twin(d, g)),
+                    f"Kernel {tag} != twin on full-range digits at {name} R={r} B={b} "
+                    f"({kind} key{what})")
+            plan = epk.last_plan[kernel.symbol]
+            log(f"  Kernel {tag} full-range {kind:6s} {name:13s} R={r:<3d} B={b:<4d} equal{what}; "
+                f"plan {plan}")
+        return plan
+
+    cases = [("test_insecure", b, "random", 1) for b in (1, 7, 17, 64, 65, 1024)]
+    cases += [("test_insecure", 64, "random", 3), ("large_2048", 3, "random", 1),
+              ("large_4096", 3, "random", 1),
+              ("test_insecure", 7, "0x80", 1), ("test_insecure", 64, "0x80", 3)]
+    for case in cases:
+        check(*case)
+    real_sm_count = epk.sm_count
+    for sms, split in ((1, 1), (10_000, 8)):
+        epk.sm_count = lambda device: sms
+        epk._plan_on.cache_clear()
+        try:
+            plan = check("test_insecure", 64, "random", 3, f", plan forced by {sms} SMs")
+        finally:
+            epk.sm_count = real_sm_count
+            epk._plan_on.cache_clear()
+        require(plan["split"] == split, f"{sms} SMs gave the row split {plan['split']}")
+    # one digit buffer and 2 warps per CTA, which ep_plan gives only at
+    # large_4096 and N=32: through the C entry points with that plan
+    p = get_params("test_insecure")
+    k1, n, b = p.glwe_dimension + 1, p.degree, 40
+    r = k1 * p.pbs_decomposer.levels
+    g = to_torch_u32(rnd_u32(rng, (r, k1, n)), dev)
+    info = (ctypes.c_int * 2)()
+    for tag, (_, twin, kernel) in kernels.items():
+        shape = (r, b, n) if tag == "A" else (b, r, n)
+        d = torch.from_numpy(rng.integers(-128, 128, size=shape, dtype=np.int8)).to(dev)
+        want = twin(d, g)
+        for bm in (16, 32):
+            out = torch.empty_like(want)
+            kernel.launch(ptr(d), ptr(g), ptr(out), r, b, k1, n, bm, 2, 3, r // 3, 1, info,
+                          stream_of(out))
+            require(torch.equal(out, want), f"Kernel {tag} != twin with one digit buffer, "
+                                            f"{bm} samples per CTA, 2 warps")
+        log(f"  Kernel {tag} full-range random test_insecure R={r} B={b} equal with one digit "
+            f"buffer and 2 warps (16 and 32 samples per CTA)")
+    torch.cuda.synchronize()
+
+
+def time_contractions(epk, sk, params, rng, dev, card, graph_ms, bk_to_matmul_w) -> dict:
+    """Phase 4: Kernels A and H at the shapes of their paths on full-range
+    digits, each with its plan, its SM clock, its twin's time, its library
+    call (``torch._int_mm`` of the digits [B, R*N] against the key's
+    Toeplitz limb form W = ``bk_to_matmul_w``, int8 [R*N, C*4*N], laid
+    column-major, cuBLAS's fast layout for it, and held equal to the
+    kernel's sums) and its bound.  Kernel and library are both timed as
+    CUDA graphs of EP_GRAPH calls (``scripts/measure_torch.py:graph_ms``):
+    at B=64 the host's cost per call is larger than the kernel's."""
+    k1, n = params.k + 1, params.degree
+    shapes = [("A", sk.bk_lm[0], b) for b in (1, 8, 64, 1024)] + [("A", sk.bk_bmmp_lm[0], 64)]
+    shapes += [("H", sk.bk_u32[0], b) for b in (64, 256, 1024)]
+    w_col = {}  # rows' data_ptr -> W laid column-major
+    res = {}  # (kernel, R, B) -> measurements
+    for kind, rows, b in shapes:
+        r = rows.shape[0]
+        if rows.data_ptr() not in w_col:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w = bk_to_matmul_w(rows).t().contiguous().t()
+            torch.cuda.synchronize()
+            w_col[rows.data_ptr()] = w
+            log(f"  library operand W for R={r}: {nbytes(w)} bytes, built and laid column-major "
+                f"in {(time.perf_counter() - t0) * 1e3:.2f} ms")
+        w = w_col[rows.data_ptr()]
+        if kind == "A":
+            d = torch.from_numpy(rng.integers(-128, 128, size=(r, b, n), dtype=np.int8)).to(dev)
+            kernel, fn, twin = epk.KERNEL, epk.ep_contract_rbn, epk.ep_contract_rbn_ref
+            flat = d.transpose(0, 1).reshape(b, r * n)  # a copy, made before the timing
+
+            def as_kernel(acc, b=b):
+                return acc.reshape(b, k1, 4, n).permute(1, 2, 0, 3)
+        else:
+            d = torch.from_numpy(rng.integers(-128, 128, size=(b, r, n), dtype=np.int8)).to(dev)
+            kernel, fn, twin = epk.BATCH_KERNEL, epk.ep_contract, epk.ep_contract_ref
+            flat = d.reshape(b, r * n)
+
+            def as_kernel(acc, b=b):
+                return acc.reshape(b, k1 * 4, n)
+        got = fn(d, rows)
+        plan = dict(epk.last_plan[kernel.symbol])
+        err = max_abs_err(got, twin(d, rows))
+        ms, clocked = graph_ms(lambda: fn(d, rows), EP_GRAPH)
+        mhz = sorted(c for c, _ in clocked) or [float("nan")]
+        plain_ms = cuda_ms(lambda: twin(d, rows), 3)
+        # the library call: M = B must be > 16 for torch._int_mm, so B=1 and 8
+        # pad the digits to 17 rows of which only B are the kernel's
+        pad = max(0, 17 - b)
+        lib_in = torch.cat([flat, flat.new_zeros(pad, r * n)]) if pad else flat
+        require(torch.equal(as_kernel(torch._int_mm(lib_in, w)[:b]), got),
+                f"torch._int_mm differs from Kernel {kind}'s sums at R={r} B={b}")
+        lib_ms, _ = graph_ms(lambda: torch._int_mm(lib_in, w), EP_GRAPH, clocks=False)
+        bound_ms, bound_by = bound(r * b * n * k1 * 4 * n,
+                                   nbytes(d) + nbytes(rows) + k1 * 4 * b * n * 4)
+        res[kind, r, b] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, plan=plan,
+                               sm_mhz=[mhz[0], mhz[-1]])
+        log(f"  Kernel {kind} {kernel.symbol} [R={r}, B={b}, N={n}]: kernel {ms:.6f} ms "
+            f"(graph of {EP_GRAPH}), SM clock {len(clocked)} samples {mhz[0]}-{mhz[-1]} MHz; "
+            f"library torch._int_mm {lib_ms:.6f} ms{' (M padded to 17)' if pad else ''}; "
+            f"bound {bound_ms:.6f} ms by {bound_by} (share {bound_ms / ms:.4f}); plain "
+            f"{plain_ms:.4f} ms; max_abs_err {err}; plan {plan}; card: {card}")
+    require(all(v["max_abs_err"] == 0 for v in res.values()),
+            "a contraction kernel disagrees with its twin at its path's shapes")
+    return res
+
+
 #: the whole-scan variants: impl -> (wrapper name, options); their twins are
 #: the wrapper name + "_ref"
 WHOLE_SCAN = {
@@ -366,7 +529,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase0()
     sys.path[:0] = [str(ROOT), str(ROOT / "scripts")]
-    from measure_torch import dp4a_per_sample_step, sampled_clocks
+    from measure_torch import dp4a_per_sample_step, graph_ms, sampled_clocks
     import tfhe_tpu_torch as tfhe
     from tfhe_tpu_torch.models import bootstrap as mboot
     from tfhe_tpu_torch.models import ggsw as mggsw
@@ -387,7 +550,7 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels = (epk.KERNEL, brk.KERNEL, latk.KERNEL, nttk.KERNEL, brk.PIPE_KERNEL,
                brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL, epk.BATCH_KERNEL)
-    phase1(kernels)
+    phase1(kernels, (epk.KERNEL, epk.BATCH_KERNEL))
     t0 = time.perf_counter()
     budget = smem_budget(dev)
     budget_us = (time.perf_counter() - t0) * 1e6
@@ -422,6 +585,7 @@ def main() -> int:
     phase2_nttf(nttk, ntt, tfhe.get_params, to_torch_u32, params, sk, dev)
     phase2_whole_scan(brk, tfhe.get_params, to_torch_u32, params, sk, dev)
     phase2_ep_batch(epk, tfhe.get_params, to_torch_u32, params, sk, dev)
+    phase2_ep_edges(epk, tfhe.get_params, to_torch_u32, dev)
 
     log(f"phase 3: main paths, {params.name} NAND")
     rng = np.random.default_rng(3)
@@ -571,24 +735,9 @@ def main() -> int:
     torch.cuda.synchronize()
     bk_plain_ms = (time.perf_counter() - t0) * 1e3
     bk_err = max_abs_err(got, ref)
-    # Kernel A at R rows (auto) and at the 3R rows of the bmmp scan, whose key
-    # rows are one step's BMMP triple
-    ep = {}
-    for rows, b in ((sk.bk_lm[0], AUTO_B), (sk.bk_bmmp_lm[0], BMMP_B)):
-        r = rows.shape[0]
-        digits = torch.from_numpy(
-            rng.integers(-8, 17, size=(r, b, params.degree), dtype=np.int8)).to(dev)
-        ms = cuda_ms(lambda: epk.ep_contract_rbn(digits, rows), 20)
-        plain_ms = cuda_ms(lambda: epk.ep_contract_rbn_ref(digits, rows), 5)
-        err = max_abs_err(epk.ep_contract_rbn(digits, rows), epk.ep_contract_rbn_ref(digits, rows))
-        ep[r] = (ms, plain_ms, err)
-        log(f"  ep_contract_rbn [R={r}, B={b}, N={params.degree}]: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, max_abs_err {err}; card: {card}")
-    ep_ms, ep_plain_ms, _ = ep[sk.bk_lm.shape[1]]
-    ep_err = max(e for *_, e in ep.values())
     log(f"  blind_rotate_fused fusedb [B={MAIN_B}, n={params.n}]: kernel {bk_ms:.2f} ms, "
         f"plain {bk_plain_ms:.2f} ms, max_abs_err {bk_err}; card: {card}")
-    require(ep_err == 0 and bk_err == 0, "a kernel disagrees with its twin at main-path shapes")
+    require(bk_err == 0, "Kernel B disagrees with its twin at the main path's shape")
 
     log("phase 4: small-batch gates (CUDA events; mean of 3 after one warm-up, "
         "2 for fusedb and bmmp)")
@@ -680,71 +829,17 @@ def main() -> int:
     require(all(e == 0 for _, _, e, _ in ws.values()),
             "a whole-scan kernel disagrees with its twin at the main path's shape")
 
-    log(f"phase 4: Kernel H, the conv gate at B={CONV_B}, and the contraction kernels' "
-        "library call (CUDA events)")
+    log(f"phase 4: the contraction kernels A and H beside their library call and bound, "
+        f"and the conv gate at B={CONV_B} (CUDA events)")
     k1, n = params.k + 1, params.degree
     r = k1 * params.pbs_decomposer.levels
     steps = params.n
-    ep_h = {}  # B -> (ms, plain ms, max_abs_err)
-    for b in (CONV_B, CMUX_B):
-        digits = torch.from_numpy(rng.integers(-8, 17, size=(b, r, n), dtype=np.int8)).to(dev)
-        ggsw_0 = sk.bk_u32[0]
-        ms = cuda_ms(lambda: epk.ep_contract(digits, ggsw_0), 20)
-        plain_ms = cuda_ms(lambda: epk.ep_contract_ref(digits, ggsw_0), 5)
-        err = max_abs_err(epk.ep_contract(digits, ggsw_0), epk.ep_contract_ref(digits, ggsw_0))
-        ep_h[b] = (ms, plain_ms, err)
-        log(f"  ep_contract [B={b}, R={r}, N={n}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"max_abs_err {err}; card: {card}")
-    require(all(e == 0 for *_, e in ep_h.values()), "Kernel H disagrees with its twin")
+    ep = time_contractions(epk, sk, params, rng, dev, card, graph_ms, bk_to_matmul_w)
+    ep_a, ep_h = ep["A", r, AUTO_B], ep["H", r, CONV_B]
     conv_ms = cuda_ms(lambda: nand("conv", CONV_B), 2)
     log(f"  gate conv   B={CONV_B:<3d} {conv_ms:.3f} ms (mean of 2 after a warm-up); card: {card}")
-    # The library call: torch._int_mm(digits [B, R*N], W [R*N, C*4*N]), W the
-    # key's Toeplitz limb form, built once (timed apart).  cuBLAS takes W in
-    # either layout; column-major is its fast one, so that is the yardstick.
-    library = {}  # (kernel, B) -> ms
-    for name, rows, b in (("ep_contract_rbn", sk.bk_lm[0], AUTO_B),
-                          ("ep_contract", sk.bk_u32[0], CONV_B),
-                          ("ep_contract", sk.bk_u32[0], CMUX_B)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        w = bk_to_matmul_w(rows)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        w_col = w.t().contiguous().t()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        if name == "ep_contract_rbn":
-            d = torch.from_numpy(rng.integers(-8, 17, size=(r, b, n), dtype=np.int8)).to(dev)
-            got = epk.ep_contract_rbn(d, rows)
-            flat = d.transpose(0, 1).reshape(b, r * n)  # a copy, made before the timing
-
-            def as_kernel(acc):
-                return acc.reshape(b, k1, 4, n).permute(1, 2, 0, 3)
-        else:
-            d = torch.from_numpy(rng.integers(-8, 17, size=(b, r, n), dtype=np.int8)).to(dev)
-            got = epk.ep_contract(d, rows)
-            flat = d.reshape(b, r * n)
-
-            def as_kernel(acc):
-                return acc.reshape(b, k1 * 4, n)
-        col_ms = cuda_ms(lambda: torch._int_mm(flat, w_col), 20)
-        row_ms = cuda_ms(lambda: torch._int_mm(flat, w), 20)
-        for layout in (w_col, w):
-            require(torch.equal(as_kernel(torch._int_mm(flat, layout)), got),
-                    f"torch._int_mm differs from {name}'s sums at B={b}")
-        library[name, b] = col_ms
-        log(f"  library torch._int_mm for {name} [B={b}]: {col_ms:.4f} ms with W column-major, "
-            f"{row_ms:.4f} ms row-major; equal to the kernel's sums; W {nbytes(w)} bytes, built "
-            f"in {(t1 - t0) * 1e3:.2f} ms, laid column-major in {(t2 - t1) * 1e3:.2f} ms; "
-            f"card: {card}")
 
     # bounds at the shapes the timings above ran
-    # Kernel A: int8 digits [R, B, N] and one step's rows in, int32 [C, 4, B, N] out
-    ep_bound = bound(r * AUTO_B * n * k1 * 4 * n,
-                     r * AUTO_B * n + nbytes(sk.bk_lm[0]) + k1 * 4 * AUTO_B * n * 4)
-    # Kernel H: int8 digits [B, R, N] and one GGSW in, int32 [B, C*4, N] out
-    eph_bound = bound(CONV_B * r * n * k1 * 4 * n,
-                      CONV_B * r * n + nbytes(sk.bk_u32[0]) + CONV_B * k1 * 4 * n * 4)
     acc_bytes = 2 * nbytes(acc0) + nbytes(a_hat)  # acc in and out, exponents
     bk_bound = bound(r * n * k1 * n * 4 * steps * MAIN_B, acc_bytes + nbytes(sk.bk_u32))
     b1 = 2 * nbytes(acc0[:1]) + nbytes(a_hat[:, :1])
@@ -756,16 +851,17 @@ def main() -> int:
         {"name": "ep_contract_rbn", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/ep_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/ep_kernel.py:128",
-         "launches": launches["ep_contract_rbn"], "max_abs_err": ep_err,
-         "ms": ep_ms, "plain_ms": ep_plain_ms, "bound_ms": ep_bound[0],
-         "bound_by": ep_bound[1], "library_ms": library["ep_contract_rbn", AUTO_B]},
+         "launches": launches["ep_contract_rbn"],
+         "max_abs_err": max(v["max_abs_err"] for (kind, *_), v in ep.items() if kind == "A"),
+         "ms": ep_a["ms"], "plain_ms": ep_a["plain_ms"], "bound_ms": ep_a["bound_ms"],
+         "bound_by": ep_a["bound_by"], "library_ms": ep_a["library_ms"], "plan": ep_a["plan"]},
         {"name": "ep_contract", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/ep_batch_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/ep_kernel.py:66",
          "launches": launches["ep_contract"],
-         "max_abs_err": max(e for *_, e in ep_h.values()),
-         "ms": ep_h[CONV_B][0], "plain_ms": ep_h[CONV_B][1], "bound_ms": eph_bound[0],
-         "bound_by": eph_bound[1], "library_ms": library["ep_contract", CONV_B]},
+         "max_abs_err": max(v["max_abs_err"] for (kind, *_), v in ep.items() if kind == "H"),
+         "ms": ep_h["ms"], "plain_ms": ep_h["plain_ms"], "bound_ms": ep_h["bound_ms"],
+         "bound_by": ep_h["bound_by"], "library_ms": ep_h["library_ms"], "plan": ep_h["plan"]},
         {"name": "blind_rotate_fused", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/blind_rotate_kernel.py:862",

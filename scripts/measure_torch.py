@@ -21,20 +21,16 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
   * Kernels E, F and G (``blind_rotate_fused_pipe``, ``_wide_pipe``,
     ``_cols``) alone at B = 8 .. 2048 and Kernel B at key_limbs=3 at
     B=1024, with their launch plans;
-  * the two contraction kernels, Kernel A (``ep_contract_rbn``, on the
-    key's first level-major GGSW) and Kernel H (``ep_contract``, on its
-    first canonical GGSW), at B = 64 .. 1024, beside their library call
-    ``torch._int_mm`` against the Toeplitz limb form ``bk_to_matmul_w``
-    with W column-major and row-major (W's build timed apart);
   * one NAND gate per impl: fusedb, fused and nttf at B=1024, auto (Kernel A)
     at B=64 and B=1024, conv (Kernel H) and matmul (plain) at B=64, the
     small-batch impls fusedl, bmmpl, bmmp and fusedb at B <= 64, and nttf,
     ntt and ntts at B=64;
-  * the device busy time of one fusedb and one nttf gate (B=1024), one auto
-    gate (B=64) and one fusedl gate (B=1) from ``torch.profiler``, with the
-    kernels that took the most of it.
+  * the device busy time of one fusedb and one nttf gate (B=1024), one
+    auto, conv and bmmp gate (B=64) and one fusedl gate (B=1) from
+    ``torch.profiler``, with the kernels that took the most of it.
 
-Every round's milliseconds are kept unrounded.  The results go to
+The contraction kernels A and H are timed beside their library call by
+``chip_smoke.py`` phase 4, with ``graph_ms`` below.  Every round's milliseconds are kept unrounded.  The results go to
 ``chiprun_out/measure_torch.json`` and, as one JSON line, to the end of the
 standard output.  It imports neither JAX nor ``tfhe_tpu``.
 """
@@ -64,8 +60,8 @@ GATES = (("fusedb", 1024), ("fused", 1024), ("auto", 64), ("auto", 1024), ("conv
 SCHEDULES = (("kernelE_fusedp", "blind_rotate_fused_pipe", {}),
              ("kernelF_fusedwb", "blind_rotate_fused_wide_pipe", {"balanced": True}),
              ("kernelG_fusedc", "blind_rotate_fused_cols", {}))
-PROFILED = (("fusedb", 1024), ("nttf", 1024), ("auto", 64), ("conv", 64), ("fusedl", 1))
-EP_BATCHES = (64, 256, 1024)  # batches of the contraction kernels and their library call
+PROFILED = (("fusedb", 1024), ("nttf", 1024), ("auto", 64), ("conv", 64), ("bmmp", 64),
+            ("fusedl", 1))
 IMAD_PER_CLK_PER_SM = 64  # Hopper's INT32 multiply-add lanes per SM
 
 
@@ -128,6 +124,33 @@ def sampled_clocks(fn, calls: int) -> tuple[float, list[tuple[float, float]]]:
     return start.elapsed_time(end) / calls, samples
 
 
+def graph_ms(fn, launches: int, clocks: bool = True) -> tuple[float, list[tuple[float, float]]]:
+    """Device ms per call of ``fn()``: ``launches`` calls captured in one CUDA
+    graph, replayed back to back for at least ~0.3 s, with the SM clock
+    sampled meanwhile (``sampled_clocks``) unless ``clocks`` is false.  A
+    graph keeps the host's per-call cost, which is larger than a
+    contraction kernel's device time at B=64, out of the measurement.
+    Returns the ms and the clock samples."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    per_replay = sum(event_rounds(graph.replay, 3)) / 3
+    calls = max(3, int(300 / per_replay) + 1)
+    if clocks:
+        ms, samples = sampled_clocks(graph.replay, calls)
+    else:
+        ms, samples = sum(event_rounds(graph.replay, calls)) / calls, []
+    del graph
+    return ms / launches, samples
+
+
 def device_busy(fn) -> tuple[float, list[tuple[str, float, int]]]:
     """Device ms summed over all kernels of one ``fn()`` under
     ``torch.profiler``, and the eight kernels that took the most."""
@@ -167,10 +190,8 @@ def main() -> int:
     from tfhe_tpu_torch.models import bootstrap as mboot
     from tfhe_tpu_torch.models import test_vector as mtv
     from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
-    from tfhe_tpu_torch.ops.cuda import ep_kernel as epk
     from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
     from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
-    from tfhe_tpu_torch.ops.poly import bk_to_matmul_w
     from tfhe_tpu_torch.ops.torus import switch_modulus, to_torch_u32
 
     card = subprocess.run(
@@ -306,31 +327,6 @@ def main() -> int:
     t = event_rounds(lambda: brk.blind_rotate_fused(p, acc0, sk.bk_u32, a_hat, True, 3), 3)
     res["kernelB_fusedb3_B1024_ms"] = t
     log(f"Kernel B fusedb3 (key_limbs=3) B=1024: ms {t}")
-
-    # Kernels A and H beside their library call: torch._int_mm of the digits
-    # [B, R*N] against W = bk_to_matmul_w(GGSW), int8 [R*N, C*4*N]
-    r, n = (p.k + 1) * p.pbs_decomposer.levels, p.degree
-    for name, rows in (("kernelA", sk.bk_lm[0]), ("kernelH", sk.bk_u32[0])):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        w = bk_to_matmul_w(rows)
-        torch.cuda.synchronize()
-        res[f"{name}_w_build_s"] = time.perf_counter() - t0
-        w_col = w.t().contiguous().t()
-        for b in EP_BATCHES:
-            if name == "kernelA":
-                d = torch.from_numpy(rng.integers(-8, 17, size=(r, b, n), dtype=np.int8)).to(dev)
-                flat = d.transpose(0, 1).reshape(b, r * n)
-                res[f"{name}_B{b}_ms"] = event_rounds(lambda: epk.ep_contract_rbn(d, rows), 5)
-            else:
-                d = torch.from_numpy(rng.integers(-8, 17, size=(b, r, n), dtype=np.int8)).to(dev)
-                flat = d.reshape(b, r * n)
-                res[f"{name}_B{b}_ms"] = event_rounds(lambda: epk.ep_contract(d, rows), 5)
-            res[f"{name}_B{b}_int_mm_w_col_ms"] = event_rounds(lambda: torch._int_mm(flat, w_col), 5)
-            res[f"{name}_B{b}_int_mm_w_row_ms"] = event_rounds(lambda: torch._int_mm(flat, w), 5)
-            log(f"{name} B={b}: kernel ms {res[f'{name}_B{b}_ms']}, torch._int_mm ms "
-                f"{res[f'{name}_B{b}_int_mm_w_col_ms']} (W column-major), "
-                f"{res[f'{name}_B{b}_int_mm_w_row_ms']} (row-major)")
 
     for impl, b in GATES:
         t = event_rounds(lambda: tfhe.gates.nand(sk, ca[:b], cb[:b], impl=impl),

@@ -8,6 +8,8 @@ neither JAX nor tfhe_tpu, so it also runs on a machine without JAX:
 (``--noconftest`` skips tests/conftest.py, which imports JAX.)
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -77,18 +79,149 @@ def test_ep_batch_kernel_matches_twin_on_card(cuda_device, name, batch, key):
     assert torch.equal(got, epk.ep_contract_ref(d, g))
 
 
+def launch_with_plan(kernel, d, g, out, r, b, c, n, plan):
+    """Call a contraction kernel's C entry point with a hand-made plan
+    (bm, warps, split, rows_per, nbuf), past the wrapper's own checks."""
+    info = (ctypes.c_int * 2)()
+    kernel.launch(_build.ptr(d), _build.ptr(g), _build.ptr(out), r, b, c, n, *plan, info,
+                  _build.stream_of(out))
+
+
 @pytest.mark.cuda
 def test_ep_batch_kernel_refuses_unsupported_shapes_on_card(cuda_device):
-    """N=12 is not a power of two, N=4 is below 8: Kernel H's C entry point
-    returns cudaErrorInvalidValue, the wrapper raises and counts no launch."""
+    """N=12 is not a power of two, N=4 and N=16 are below 32: the wrapper
+    raises before any launch, and Kernel H's C entry point, given such a
+    shape or a plan it does not take, returns cudaErrorInvalidValue; no
+    launch is counted."""
     rng = np.random.default_rng(46)
     before = epk.BATCH_KERNEL.launches
-    for n in (12, 4):
+    for n in (12, 4, 16):
         d = torch.from_numpy(rng.integers(-8, 17, size=(3, 2, n), dtype=np.int8)).to(cuda_device)
         g = to_torch_u32(rnd_u32(rng, (2, 2, n)), cuda_device)
-        with pytest.raises(RuntimeError, match="invalid argument"):
+        with pytest.raises(ValueError, match="power of two"):
             epk.ep_contract(d, g)
+        out = torch.empty((3, 8, n), dtype=torch.int32, device=cuda_device)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            launch_with_plan(epk.BATCH_KERNEL, d, g, out, 2, 3, 2, n, (16, 2, 1, 2, 1))
+    d, g = ep_batch_inputs("nano", 3, "random", seed=46)
+    out = torch.empty((3, 8, 64), dtype=torch.int32, device=cuda_device)
+    for plan in ((8, 4, 1, 12, 2),    # 8 samples per CTA
+                 (16, 1, 1, 12, 2),   # 1 warp
+                 (64, 4, 1, 12, 2),   # 64 samples per CTA
+                 (16, 4, 3, 2, 2),    # 3 splits of 2 rows leave rows 6..11 out
+                 (16, 4, 12, 1, 2),   # a cluster of 12 CTAs
+                 (16, 8, 1, 12, 2),   # 8 warps are 128 outputs, N is 64
+                 (16, 4, 1, 12, 3)):  # 3 digit buffers
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            launch_with_plan(epk.BATCH_KERNEL, d, g, out, 12, 3, 2, 64, plan)
     assert epk.BATCH_KERNEL.launches == before
+
+
+def ep_edge_inputs(name, batch, seed, layout, key="random", row_mult=1):
+    """Full-range int8 digits (-128..127) in Kernel A's ('rbn') or Kernel
+    H's ('batch') layout, and R' = row_mult * R key rows: random, or every
+    byte 0x80 ('0x80')."""
+    p = get_params(name)
+    k1, n = p.glwe_dimension + 1, p.degree
+    r = k1 * p.pbs_decomposer.levels * row_mult
+    rng = np.random.default_rng(seed)
+    shape = (r, batch, n) if layout == "rbn" else (batch, r, n)
+    d = torch.from_numpy(rng.integers(-128, 128, size=shape, dtype=np.int8)).to("cuda")
+    words = (np.full((r, k1, n), 0x80808080, np.uint32) if key == "0x80"
+             else rnd_u32(rng, (r, k1, n)))
+    return d, to_torch_u32(words, "cuda")
+
+
+#: the contraction kernels by layout: (wrapper, twin, kernel)
+EP_KERNELS = {"rbn": (epk.ep_contract_rbn, epk.ep_contract_rbn_ref, epk.KERNEL),
+              "batch": (epk.ep_contract, epk.ep_contract_ref, epk.BATCH_KERNEL)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rbn", "batch"], ids=["A", "H"])
+@pytest.mark.parametrize("name,batch,key,row_mult", [
+    ("test_insecure", 1, "random", 1), ("test_insecure", 7, "random", 1),
+    ("test_insecure", 17, "random", 1), ("test_insecure", 64, "random", 1),
+    ("test_insecure", 65, "random", 1), ("test_insecure", 1024, "random", 1),
+    ("test_insecure", 64, "random", 3), ("large_2048", 3, "random", 1),
+    ("large_4096", 3, "random", 1), ("test_insecure", 7, "0x80", 1), ("nano", 5, "0x80", 3)])
+def test_ep_kernels_match_twins_at_the_edges_on_card(cuda_device, layout, name, batch, key,
+                                                     row_mult):
+    """Kernels A and H equal their twins on full-range digits: partial and
+    several M tiles (B = 1, 7, 17, 64, 65, 1024), the bmmp scan's 3R rows,
+    large_2048 (C=2, N=2048), large_4096 (N=4096, where the plan has one
+    digit buffer) and the all-0x80 key, one launch each."""
+    fn, twin, kernel = EP_KERNELS[layout]
+    d, g = ep_edge_inputs(name, batch, 140 + batch, layout, key, row_mult)
+    before = kernel.launches
+    got = fn(d, g)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    plan = epk.last_plan[kernel.symbol]
+    assert plan["smem_bytes"] == epk.smem_bytes(g.shape[-1], plan["samples_per_cta"],
+                                                plan["warps"], plan["digit_buffers"])
+    assert plan["digit_buffers"] == (1 if name == "large_4096" else 2)
+    assert torch.equal(got, twin(d, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rbn", "batch"], ids=["A", "H"])
+@pytest.mark.parametrize("sms,split", [(1, 1), (10_000, 8)], ids=["no-split", "split"])
+def test_ep_kernels_match_twins_with_and_without_a_row_split_on_card(
+        cuda_device, monkeypatch, layout, sms, split):
+    """A card of 1 SM gives a plan with no row split, one of 10,000 SMs the
+    largest split: 8 CTAs per cluster over the 3R = 54 rows, 7 rows each and
+    5 in the last; both equal the twin at default_128's shape, B=64."""
+    fn, twin, kernel = EP_KERNELS[layout]
+    monkeypatch.setattr(epk, "sm_count", lambda device: sms)
+    epk._plan_on.cache_clear()
+    try:
+        d, g = ep_edge_inputs("test_insecure", 64, 150 + sms % 7, layout, row_mult=3)
+        got = fn(d, g)
+        torch.cuda.synchronize()
+        assert epk.last_plan[kernel.symbol]["split"] == split
+        assert torch.equal(got, twin(d, g))
+    finally:
+        epk._plan_on.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rbn", "batch"], ids=["A", "H"])
+@pytest.mark.parametrize("bm", [16, 32])
+def test_ep_kernels_match_twins_with_one_digit_buffer_on_card(cuda_device, layout, bm):
+    """The plan parts that default_128 never picks: one digit buffer (what
+    ep_plan gives at large_4096, where two do not fit) and 2 warps per CTA
+    (N=32), here at test_insecure, B=40, rows split 3 ways."""
+    fn, twin, kernel = EP_KERNELS[layout]
+    d, g = ep_edge_inputs("test_insecure", 40, 160 + bm, layout)
+    want = twin(d, g)
+    r, c, n = g.shape
+    out = torch.empty_like(want)
+    launch_with_plan(kernel, d, g, out, r, 40, c, n, (bm, 2, 3, r // 3, 1))
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rbn", "batch"], ids=["A", "H"])
+def test_ep_kernels_launch_on_a_second_card(cuda_device, layout):
+    """The shared-memory attribute is set per card: after a launch on the
+    first card, a launch at default_128's shape (52,736 bytes, above the
+    48 KB default) on the second runs there and equals the twin."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    fn, twin, kernel = EP_KERNELS[layout]
+    d, g = ep_edge_inputs("default_128", 64, 170, layout)
+    want = twin(d, g)
+    assert torch.equal(fn(d, g), want)
+    assert epk.last_plan[kernel.symbol]["smem_bytes"] > 48 * 1024
+    second = torch.device("cuda", 1)
+    before = kernel.launches
+    got = fn(d.to(second), g.to(second))
+    torch.cuda.synchronize(second)
+    assert kernel.launches == before + 1
+    assert got.device == second
+    assert torch.equal(got.to(want.device), want)
 
 
 @pytest.mark.cuda
@@ -158,11 +291,15 @@ def test_kernels_refuse_unsupported_shapes_on_card(cuda_device):
     wrappers raise on the refusal without counting a launch."""
     p = get_params("nano")
     rng = np.random.default_rng(60)
-    d = torch.from_numpy(rng.integers(-8, 17, size=(2, 1, 12), dtype=np.int8)).to(cuda_device)
-    g = to_torch_u32(rnd_u32(rng, (2, 2, 12)), cuda_device)
     before = epk.KERNEL.launches
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        epk.ep_contract_rbn(d, g)  # N=12 is not a power of two
+    for n in (12, 16):  # not a power of two; below 32
+        d = torch.from_numpy(rng.integers(-8, 17, size=(2, 1, n), dtype=np.int8)).to(cuda_device)
+        g = to_torch_u32(rnd_u32(rng, (2, 2, n)), cuda_device)
+        with pytest.raises(ValueError, match="power of two"):
+            epk.ep_contract_rbn(d, g)
+        out = torch.empty((2, 4, 1, n), dtype=torch.int32, device=cuda_device)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            launch_with_plan(epk.KERNEL, d, g, out, 2, 1, 2, n, (16, 2, 1, 2, 1))
     assert epk.KERNEL.launches == before
     k1, n = 3, 1024  # (k+1)*N/8 = 384 threads > 256
     acc0 = to_torch_u32(rnd_u32(rng, (1, k1, n)), cuda_device)

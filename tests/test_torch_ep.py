@@ -53,15 +53,17 @@ def same_int(torch_t, jax_t) -> bool:
     return np.array_equal(torch_t.numpy(), np.asarray(jax_t))
 
 
-def ep_inputs(name, batch, key, seed):
-    """Batch-major digits int8[B, R, N] and one GGSW u32[R, C, N]: random,
-    every byte 0x80 ('0x80'), or random with a quarter of the words given
-    0x80 bytes and the edge values planted ('planted')."""
+def ep_inputs(name, batch, key, seed, digits="chain"):
+    """Batch-major digits int8[B, R, N] (the carry chain's range, or the full
+    int8 range with digits='full') and one GGSW u32[R, C, N]: random, every
+    byte 0x80 ('0x80'), or random with a quarter of the words given 0x80
+    bytes and the edge values planted ('planted')."""
     p = t_get_params(name)
     k1, n = p.glwe_dimension + 1, p.degree
     r = k1 * p.pbs_decomposer.levels
     rng = np.random.default_rng(seed)
-    digits = rng.integers(-8, 17, size=(batch, r, n), dtype=np.int8)  # chain range
+    lo, hi = (-8, 17) if digits == "chain" else (-128, 128)
+    digits = rng.integers(lo, hi, size=(batch, r, n), dtype=np.int8)
     if key == "0x80":
         return digits, np.full((r, k1, n), 0x80808080, np.uint32)
     words = rnd_u32(rng, (r, k1, n))
@@ -79,10 +81,13 @@ def ep_inputs(name, batch, key, seed):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name,key", [("nano", "random"), ("nano", "0x80"),
-                                      ("test_insecure", "planted")])
-def test_ep_contract_twin_matches_pallas_interpret(name, key):
-    digits, words = ep_inputs(name, 5, key, seed=61)
+@pytest.mark.parametrize("name,key,digit_range", [
+    pytest.param("nano", "random", "chain", id="nano-random"),
+    pytest.param("nano", "0x80", "chain", id="nano-0x80"),
+    pytest.param("test_insecure", "planted", "chain", id="test_insecure-planted"),
+    pytest.param("test_insecure", "planted", "full", id="test_insecure-planted-full")])
+def test_ep_contract_twin_matches_pallas_interpret(name, key, digit_range):
+    digits, words = ep_inputs(name, 5, key, seed=61, digits=digit_range)
     want = np.asarray(ep_contract_pallas(jnp.asarray(digits), jnp.asarray(words),
                                          interpret=True))
     ref = epk.ep_contract_ref(torch.from_numpy(digits), to_torch_u32(words))
@@ -96,6 +101,101 @@ def test_ep_contract_refuses_other_devices():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         epk.ep_contract(torch.from_numpy(digits).to("meta"), to_torch_u32(words).to("meta"))
     assert epk.BATCH_KERNEL.launches == 0
+
+
+def shifted_limb_planes(g_row):
+    """The 16 staged copies of ``csrc/ep_contract.cuh:build_planes`` for one
+    key row g u32[N], as bytes [limb l, shift s, word w, byte j] =
+    P_l[(4w + s + j) mod 2N], P_l[x] = limb_l(ext[(-x) mod 2N]), ext = [g, -g]."""
+    n = g_row.size
+    ext = np.concatenate([g_row, (np.uint32(0) - g_row).astype(np.uint32)])
+    words = (ext + np.uint32(0x80808080)) ^ np.uint32(0x80808080)
+    limbs = np.stack([((words >> np.uint32(8 * l)) & np.uint32(0xFF)).astype(np.uint8)
+                      for l in range(4)]).view(np.int8)  # limb_l(ext[i])
+    x = 4 * np.arange(n // 2)[None, :, None] + np.arange(4)[:, None, None] + np.arange(4)
+    return limbs[:, (-x) % (2 * n)]  # [4, 4, N/2, 4]
+
+
+def test_circulant_from_shifted_planes_matches_twin():
+    """The layout identity Kernels A and H rely on: the B-fragment register
+    of k = m0 + 4t + j (j = 0..3) at n = o is word (x >> 2) of copy (x & 3),
+    x = (m0 + 4t - o) mod 2N, so entry (m, o) of the circulant is byte m % 4
+    of that word.  Reading W so, four bytes at a time, the sums equal the
+    twin (test_insecure, full-range digits, B=5)."""
+    digits, words = ep_inputs("test_insecure", 5, "planted", seed=71, digits="full")
+    b, r, n = digits.shape
+    c = words.shape[1]
+    quad = np.arange(n // 4)[:, None]
+    x = (4 * quad - np.arange(n)[None, :]) % (2 * n)  # [N/4, N]: one word per 4 rows m
+    want = epk.ep_contract_ref(torch.from_numpy(digits), to_torch_u32(words)).numpy()
+    got = np.zeros((b, c * 4, n), np.int64)
+    for ri in range(r):
+        for ci in range(c):
+            planes = shifted_limb_planes(words[ri, ci])
+            for l in range(4):
+                word_bytes = planes[l][x & 3, x >> 2]  # [N/4, N, 4]: bytes j of the B word
+                w_mat = word_bytes.transpose(0, 2, 1).reshape(n, n).astype(np.int64)
+                got[:, ci * 4 + l] += digits[:, ri].astype(np.int64) @ w_mat
+    assert np.array_equal(got, want)
+
+
+def plan_coverage(plan, b, r, c, n):
+    """How often the plan's launch covers each (sample, limb), each (column,
+    output) and each row, following ``ep_contract.cuh:contract``'s indexing:
+    grid (split, C * N/to, ceil(B/bm)); CTA q of a cluster sums rows
+    [q*rows_per, ...) and stores the partial rows rho = l*bm + bb with
+    rho = q, q + split, ....  An output (b, c, l, o) is stored
+    samples[b, l] * cols[c, o] times, with rows[r] of each row in it."""
+    bm, to, split, rows_per = (plan[k] for k in ("samples_per_cta", "outputs_per_cta", "split",
+                                                 "rows_per_split"))
+    samples, cols, rows = np.zeros((b, 4), int), np.zeros((c, n), int), np.zeros(r, int)
+    for z in range(-(-b // bm)):
+        for q in range(split):
+            for rho in range(q, 4 * bm, split):
+                l, bb = divmod(rho, bm)
+                if z * bm + bb < b:
+                    samples[z * bm + bb, l] += 1
+    for y in range(c * (n // to)):
+        ci, o0 = divmod(y, n // to)
+        cols[ci, o0 * to:o0 * to + to] += 1
+    for q in range(split):
+        rows[q * rows_per:min(r, q * rows_per + rows_per)] += 1
+    return samples, cols, rows
+
+
+@pytest.mark.parametrize("batch", [1, 7, 64, 1024])
+@pytest.mark.parametrize("name,row_mult", [("nano", 1), ("test_insecure", 1), ("default_128", 1),
+                                           ("default_128", 3), ("large_2048", 1),
+                                           ("large_4096", 1)])
+def test_ep_plan_covers_every_output_and_row_once(name, row_mult, batch):
+    """The plan of Kernels A and H on an H100 (132 SMs, 232,448 bytes of
+    opt-in shared memory): every output stored once, every row summed into
+    it once, the shared memory within the budget, and the card filled at
+    default_128, B=64."""
+    p = t_get_params(name)
+    c, n = p.glwe_dimension + 1, p.degree
+    r = c * p.pbs_decomposer.levels * row_mult
+    plan = epk.ep_plan(batch, r, c, n, 132, 232448)
+    assert plan["smem_bytes"] <= 232448
+    assert plan["smem_bytes"] == epk.smem_bytes(n, plan["samples_per_cta"], plan["warps"],
+                                                plan["digit_buffers"])
+    assert 1 <= plan["split"] <= epk.MAX_SPLIT
+    assert plan["samples_per_cta"] in (16, 32) and n % plan["outputs_per_cta"] == 0
+    for counts in plan_coverage(plan, batch, r, c, n):
+        assert (counts == 1).all()
+    tiles = -(-batch // plan["samples_per_cta"]) * (n // plan["outputs_per_cta"]) * c
+    assert plan["ctas"] == plan["split"] * tiles
+    if name == "default_128" and batch == 64:
+        assert plan["ctas"] >= 132
+
+
+def test_ep_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="power of two"):
+        epk.ep_plan(4, 18, 3, 16, 132, 232448)  # the kernels take N >= 32
+    with pytest.raises(ValueError, match="power of two"):
+        epk.ep_plan(4, 18, 3, 96, 132, 232448)
+    with pytest.raises(ValueError, match="shared memory"):
+        epk.ep_plan(4, 12, 2, 4096, 132, 100_000)  # one 16-sample CTA needs more
 
 
 # ---------------------------------------------------------------------------

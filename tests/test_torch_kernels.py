@@ -35,12 +35,16 @@ def same(torch_u32, jax_u32) -> bool:
     return np.array_equal(to_numpy_u32(torch_u32), np.asarray(jax_u32, np.uint32))
 
 
-def ep_inputs(name, batch, seed):
+def ep_inputs(name, batch, seed, row_mult=1, digits="chain"):
+    """Digits int8[R', B, N] and rows u32[R', C, N], R' = row_mult * R (3 for
+    the bmmp scan's rows); digits in the carry chain's range or the full
+    int8 range ('full')."""
     p = t_get_params(name)
     k1, n = p.glwe_dimension + 1, p.degree
-    r = k1 * p.pbs_decomposer.levels
+    r = k1 * p.pbs_decomposer.levels * row_mult
     rng = np.random.default_rng(seed)
-    digits = rng.integers(-8, 17, size=(r, batch, n), dtype=np.int8)  # chain range
+    lo, hi = (-8, 17) if digits == "chain" else (-128, 128)
+    digits = rng.integers(lo, hi, size=(r, batch, n), dtype=np.int8)
     rows = rnd_u32(rng, (r, k1, n))
     rows[0, 0, :4] = [0, 2**31, 2**32 - 1, 0x80808080]
     return digits, rows
@@ -62,9 +66,13 @@ def rotate_inputs(name, batch, seed, steps=None):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("batch", [1, 8])
-def test_ep_contract_rbn_matches_pallas_interpret(batch):
-    digits, rows = ep_inputs("nano", batch, seed=batch)
+@pytest.mark.parametrize("batch,row_mult,digit_range", [
+    pytest.param(1, 1, "chain", id="1"), pytest.param(8, 1, "chain", id="8"),
+    pytest.param(5, 1, "full", id="full-R"), pytest.param(5, 3, "full", id="full-3R")])
+def test_ep_contract_rbn_matches_pallas_interpret(batch, row_mult, digit_range):
+    """The twin against the Pallas kernel in interpret mode, also on
+    full-range int8 digits at R rows and at the bmmp scan's 3R rows."""
+    digits, rows = ep_inputs("nano", batch, seed=batch, row_mult=row_mult, digits=digit_range)
     want = np.asarray(ep_contract_pallas_rbn(jnp.asarray(digits), jnp.asarray(rows),
                                              interpret=True))
     ref = epk.ep_contract_rbn_ref(torch.from_numpy(digits), to_torch_u32(rows))

@@ -15,23 +15,28 @@
 
 namespace {
 
-__global__ void ep_contract_kernel(const int8_t* __restrict__ digits,
-                                   const uint32_t* __restrict__ rows,
-                                   int32_t* __restrict__ out,
-                                   int R, int B, int C, int N) {
+template <int MT>
+__global__ void __launch_bounds__(128)
+ep_contract_kernel(const int8_t* __restrict__ digits, const uint32_t* __restrict__ rows,
+                   int32_t* __restrict__ out, ep::Plan p) {
   // digit row (r, b) at (b*R + r)*N; output row (f, b) at (b*4C + f)*N
-  ep::contract(digits, rows, out, R, B, C, N, ep::Layout{1, R, 1, 4 * C});
+  ep::contract<MT>(digits, rows, out, p, ep::Layout{1, p.R, 1, 4 * p.C});
 }
+
+const ep::KernelFn kKernels[2] = {ep_contract_kernel<1>, ep_contract_kernel<2>};
 
 }  // namespace
 
 extern "C" {
 
-// digits int8 [B, R, N], ggsw u32 [R, C, N] -> out int32 [B, C*4, N].
-// Returns cudaErrorInvalidValue unless N is a power of two >= 8 and B, C >= 1.
-int ep_contract(const void* digits, const void* ggsw, void* out, int R, int B, int C,
-                int N, void* stream) {
-  return ep::launch(ep_contract_kernel, digits, ggsw, out, R, B, C, N, stream);
+// digits int8 [B, R, N], ggsw u32 [R, C, N] -> out int32 [B, C*4, N], with
+// the plan of ops/cuda/ep_kernel.py:ep_plan; info as for ep_contract_rbn.
+// Returns cudaErrorInvalidValue for what ep::launch does not take (N not a
+// power of two >= 32 among them).
+int ep_contract(const void* digits, const void* ggsw, void* out, int R, int B, int C, int N,
+                int bm, int warps, int split, int rows_per, int nbuf, int* info, void* stream) {
+  const ep::Plan p{R, B, C, N, bm, warps, split, rows_per, nbuf};
+  return ep::launch(kKernels, digits, ggsw, out, p, info, stream);
 }
 
 const char* tfhe_cuda_error_string(int err) {

@@ -77,13 +77,14 @@ class CudaKernel:
         self.argtypes = argtypes
         self.launches = 0
         self.ptxas_report = ""
+        self.path = None  # the built library, once loaded
         self._fn = None
         self._lib = None
 
     def load(self):
         if self._fn is None:
-            path, self.ptxas_report = build(self.source)
-            self._lib = ctypes.CDLL(str(path))
+            self.path, self.ptxas_report = build(self.source)
+            self._lib = ctypes.CDLL(str(self.path))
             fn = getattr(self._lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -113,6 +114,12 @@ def smem_budget(device) -> int:
     whether a scoped VMEM budget compiles; here the runtime states it
     (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
     return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of CUDA ``device`` (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pick_samples_per_cta(smem_bytes, budget: int, choices=SAMPLES_PER_CTA) -> int | None:
