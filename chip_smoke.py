@@ -11,14 +11,17 @@ failure, so the script exits nonzero and prints no result line.
   0. require CUDA; print the card, its power limit, torch and CUDA versions;
   1. build the kernels, all nvcc processes at once (one per source, eight),
      with the build seconds and ptxas' resource report, and count the IMMA
-     (integer tensor-core) instructions of Kernels A and H with
-     ``cuobjdump -sass``: there must be some;
+     (integer tensor-core) instructions of Kernels A, H and B with
+     ``cuobjdump -sass``: there must be some in each;
   2. hold each kernel against its plain PyTorch twin (``torch.equal``) at
      nano, test_insecure and a 16-step slice of the default_128 key (Kernel C
      in both forms: V=1 and the BMMP V=3; Kernel D also on an all-ones
-     canonical key, the key side of its CRT range at its bound; Kernel B at
+     canonical key, the key side of its CRT range at its bound; Kernel B in
+     its four modes (fused, fusedb, fused3, fusedb3) at B = 1, 3, 7, 8, 9,
+     64 and 65, on random keys, keys whose every byte is 0x80 and keys whose
+     every low byte is 0x80 (the truncated key's hard case); Kernel B at
      key_limbs=3 and Kernels E, F and G in all their modes, also on a key
-     whose every low byte is 0x80, the truncated key's hard case; Kernel H
+     whose every low byte is 0x80; Kernel H
      at B=1, 7, 64, on a key whose every byte is 0x80, and on one GGSW of
      the default_128 key at B=64 and 1024; Kernels A and H on full-range
      int8 digits at B=1, 7, 17, 64, 65, 1024, at the bmmp scan's 3R rows,
@@ -51,7 +54,10 @@ failure, so the script exits nonzero and prints no result line.
      right, and each path must have launched its kernels;
   4. time 'fusedb' at B=1024 with CUDA events, with the SM clock sampled by
      nvidia-smi meanwhile (``scripts/measure_torch.py:sampled_clocks``), then
-     Kernel B against its twin at the main path's shape, then the
+     Kernel B against its twin at the main path's shape, then Kernel B alone
+     over the whole key at B = 8, 64, 256, 1024 and 2048 ('fusedb' and
+     'fusedb3'), each with its plan, its SM clock, its twin and its bound,
+     then the
      small-batch gates, the 8-bit add, Kernel C against its twin at B=1,
      B=8 (V=1) and B=4 (V=3), then
      the 'nttf' gate at B=1024 with the SM clock sampled, Kernel D against
@@ -74,8 +80,9 @@ flattened to [B, R*N], against the key's Toeplitz limb form
 ``bk_to_matmul_w`` (int8 [R*N, C*4*N], built once and kept column-major,
 cuBLAS's fastest layout for it); its time is their ``library_ms``, held
 equal to the kernels' sums.  Their entries also carry the ``plan`` of the
-B=64 launch.  No single call computes the whole-scan
-kernels' functions, so theirs is null.  The last line is ``{"ok": true,
+B=64 launch, and the whole-scan kernels' entries that of their main-path
+launch.  No single call computes the whole-scan kernels' functions, so
+theirs is null.  The last line is ``{"ok": true,
 "device": {...}}``.  It imports neither JAX nor ``tfhe_tpu``.
 """
 
@@ -101,6 +108,11 @@ NTT_B = 64  # batch of the plain block-NTT scans 'ntt' and 'ntts'
 CONV_B = 64  # batch of the 'conv' scan gate (Kernel H per step)
 CMUX_B = 1024  # GLWE ciphertexts of the GGSW path's cmux (one Kernel H launch)
 EP_GRAPH = 50  # contraction calls per CUDA graph when timing Kernels A and H
+#: Kernel B's modes: (impl, balanced digits, key limbs)
+KERNEL_B_MODES = (("fused", False, 4), ("fusedb", True, 4), ("fused3", False, 3),
+                  ("fusedb3", True, 3))
+#: batches at which phase 4 times Kernel B alone ('fusedb' and 'fusedb3')
+KERNEL_B_BATCHES = (8, 64, 256, 1024, 2048)
 #: H100 SXM data sheet: int8 tensor cores 1979e12 ops/s (2 per multiply-add),
 #: HBM 3.35e12 bytes/s
 INT8_MACS_PER_S = 1979e12 / 2
@@ -204,26 +216,35 @@ def phase2(epk, brk, get_params, to_torch_u32, params, sk, dev) -> None:
             require(torch.equal(epk.ep_contract_rbn(d, g), epk.ep_contract_rbn_ref(d, g)),
                     f"ep_contract_rbn != twin at {name} B={b}")
             log(f"  ep_contract_rbn   {name:13s} B={b:<4d} equal")
-    cases = [("nano", b, None) for b in (1, 3, 8)]
-    cases += [("test_insecure", b, None) for b in (1, 7, 64)]
-    cases += [(params.name, 32, sk.bk_u32[:SLICE_STEPS])]
-    for name, b, bk in cases:
+    # Kernel B in its four modes: random keys, keys whose every byte or every
+    # low byte is 0x80, batches in and out of 8Z (8 samples per CTA)
+    cases = [("nano", b, "random") for b in (1, 3, 8)]
+    cases += [("test_insecure", b, "random") for b in (1, 7, 9, 64, 65)]
+    cases += [("nano", 3, "0x80"), ("test_insecure", 9, "0x80"), ("nano", 8, "low-0x80"),
+              ("test_insecure", 7, "low-0x80"), (params.name, 32, "slice")]
+    for name, b, kind in cases:
         p = get_params(name)
         k1, n = p.glwe_dimension + 1, p.degree
-        if bk is None:
-            bk = to_torch_u32(rnd_u32(rng, (p.lwe_dimension, k1 * p.pbs_decomposer.levels,
-                                            k1, n)), dev)
+        if kind == "slice":
+            bk = sk.bk_u32[:SLICE_STEPS]
+        else:
+            words = rnd_u32(rng, (p.lwe_dimension, k1 * p.pbs_decomposer.levels, k1, n))
+            if kind == "0x80":
+                words[:] = 0x80808080
+            elif kind == "low-0x80":
+                words = (words & np.uint32(0xFFFFFF00)) | np.uint32(0x80)
+            bk = to_torch_u32(words, dev)
         steps = bk.shape[0]
         acc0 = to_torch_u32(rnd_u32(rng, (b, k1, n)), dev)
         a_hat = torch.from_numpy(
             rng.integers(0, 2 * n, size=(steps, b), dtype=np.int32)).to(dev)
-        for balanced in (False, True):
-            got = brk.blind_rotate_fused(p, acc0, bk, a_hat, balanced=balanced)
-            want = brk.blind_rotate_fused_ref(p, acc0, bk, a_hat, balanced=balanced)
-            mode = "fusedb" if balanced else "fused"
-            require(torch.equal(got, want),
-                    f"blind_rotate_fused ({mode}) != twin at {name} B={b} steps={steps}")
-            log(f"  blind_rotate_fused {mode:6s} {name:13s} B={b:<4d} steps={steps:<3d} equal")
+        for mode, balanced, key_limbs in KERNEL_B_MODES:
+            got = brk.blind_rotate_fused(p, acc0, bk, a_hat, balanced, key_limbs)
+            want = brk.blind_rotate_fused_ref(p, acc0, bk, a_hat, balanced, key_limbs)
+            require(torch.equal(got, want), f"blind_rotate_fused ({mode}) != twin at {name} "
+                                            f"B={b} steps={steps} ({kind} key)")
+        log(f"  blind_rotate_fused {kind:8s} {name:13s} B={b:<4d} steps={steps:<3d} equal in "
+            f"all 4 modes; plan {brk.last_plan['blind_rotate_fused']}")
     torch.cuda.synchronize()
 
 
@@ -455,6 +476,47 @@ def time_contractions(epk, sk, params, rng, dev, card, graph_ms, bk_to_matmul_w)
     return res
 
 
+def time_kernel_b(brk, sk, params, rng, dev, card, sampled_clocks) -> dict:
+    """Phase 4: Kernel B alone over the whole key (722 steps) at each of
+    KERNEL_B_BATCHES, 'fusedb' and 'fusedb3', on random accumulators and
+    exponents: its time (mean of 2 back to back after a warm-up, CUDA
+    events) with the SM clock sampled meanwhile, its plan, its twin's time
+    and max_abs_err, and its bound (int8 multiply-adds of the kept limbs
+    over the int8 peak, or the bytes)."""
+    k1, n, steps = params.k + 1, params.degree, params.n
+    r = k1 * params.pbs_decomposer.levels
+    res = {}  # (impl, B) -> measurements
+    for b in KERNEL_B_BATCHES:
+        acc0 = torch.from_numpy(rnd_u32(rng, (b, k1, n)).view(np.int32)).to(dev)
+        a_hat = torch.from_numpy(rng.integers(0, 2 * n, size=(steps, b), dtype=np.int32)).to(dev)
+        for impl, key_limbs in (("fusedb", 4), ("fusedb3", 3)):
+            def rotate(twin=False):
+                fn = brk.blind_rotate_fused_ref if twin else brk.blind_rotate_fused
+                return fn(params, acc0, sk.bk_u32, a_hat, True, key_limbs)
+            ms, clocked = sampled_clocks(rotate, 2)
+            mhz = sorted(c for c, _ in clocked) or [float("nan")]
+            plan = dict(brk.last_plan["blind_rotate_fused"])
+            got = rotate()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = rotate(twin=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max_abs_err(got, ref)
+            bound_ms, bound_by = bound(r * n * k1 * n * key_limbs * steps * b,
+                                       2 * nbytes(acc0) + nbytes(a_hat) + nbytes(sk.bk_u32))
+            res[impl, b] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
+                                bound_by=bound_by, plan=plan, sm_mhz=[mhz[0], mhz[-1]])
+            log(f"  Kernel B {impl:7s} [B={b}, n={steps}]: kernel {ms:.3f} ms (mean of 2), "
+                f"{b / (ms / 1e3):.1f} blind rotations/s; SM clock {len(clocked)} samples "
+                f"{mhz[0]}-{mhz[-1]} MHz; bound {bound_ms:.3f} ms by {bound_by} (share "
+                f"{bound_ms / ms:.4f}); plain {plain_ms:.1f} ms; max_abs_err {err}; plan {plan}; "
+                f"card: {card}")
+    require(all(v["max_abs_err"] == 0 for v in res.values()),
+            "Kernel B disagrees with its twin at a phase-4 batch")
+    return res
+
+
 #: the whole-scan variants: impl -> (wrapper name, options); their twins are
 #: the wrapper name + "_ref"
 WHOLE_SCAN = {
@@ -550,7 +612,7 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels = (epk.KERNEL, brk.KERNEL, latk.KERNEL, nttk.KERNEL, brk.PIPE_KERNEL,
                brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL, epk.BATCH_KERNEL)
-    phase1(kernels, (epk.KERNEL, epk.BATCH_KERNEL))
+    phase1(kernels, (epk.KERNEL, epk.BATCH_KERNEL, brk.KERNEL))
     t0 = time.perf_counter()
     budget = smem_budget(dev)
     budget_us = (time.perf_counter() - t0) * 1e6
@@ -729,6 +791,7 @@ def main() -> int:
     acc0, a_hat = mboot._init_acc(params, approx, tv)
     bk_ms = cuda_ms(lambda: brk.blind_rotate_fused(params, acc0, sk.bk_u32, a_hat, True), 2)
     got = brk.blind_rotate_fused(params, acc0, sk.bk_u32, a_hat, balanced=True)
+    bk_plan = dict(brk.last_plan["blind_rotate_fused"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = brk.blind_rotate_fused_ref(params, acc0, sk.bk_u32, a_hat, balanced=True)
@@ -736,8 +799,11 @@ def main() -> int:
     bk_plain_ms = (time.perf_counter() - t0) * 1e3
     bk_err = max_abs_err(got, ref)
     log(f"  blind_rotate_fused fusedb [B={MAIN_B}, n={params.n}]: kernel {bk_ms:.2f} ms, "
-        f"plain {bk_plain_ms:.2f} ms, max_abs_err {bk_err}; card: {card}")
+        f"plain {bk_plain_ms:.2f} ms, max_abs_err {bk_err}; plan {bk_plan}; card: {card}")
     require(bk_err == 0, "Kernel B disagrees with its twin at the main path's shape")
+    log(f"phase 4: Kernel B alone at B = {', '.join(map(str, KERNEL_B_BATCHES))}, fusedb and "
+        f"fusedb3 (CUDA events)")
+    kb = time_kernel_b(brk, sk, params, rng, dev, card, sampled_clocks)
 
     log("phase 4: small-batch gates (CUDA events; mean of 3 after one warm-up, "
         "2 for fusedb and bmmp)")
@@ -822,11 +888,11 @@ def main() -> int:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = max_abs_err(got, ref)
-        ws[name] = (ms, plain_ms, err, options.get("key_limbs", 4))
+        ws[name] = (ms, plain_ms, err, options.get("key_limbs", 4), plan)
         log(f"  {fn} ({impl}) [B={MAIN_B}, n={params.n}]: kernel {ms:.2f} ms (mean of 2 back "
             f"to back), plain {plain_ms:.2f} ms, max_abs_err {err}; SM clock {len(clocked)} "
             f"samples, {mhz[0]}-{mhz[-1]} MHz; plan {plan}; card: {card}")
-    require(all(e == 0 for _, _, e, _ in ws.values()),
+    require(all(e == 0 for _, _, e, *_ in ws.values()),
             "a whole-scan kernel disagrees with its twin at the main path's shape")
 
     log(f"phase 4: the contraction kernels A and H beside their library call and bound, "
@@ -865,9 +931,10 @@ def main() -> int:
         {"name": "blind_rotate_fused", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/blind_rotate_kernel.py:862",
-         "launches": launches["blind_rotate_fused"], "max_abs_err": bk_err,
+         "launches": launches["blind_rotate_fused"],
+         "max_abs_err": max([bk_err] + [v["max_abs_err"] for v in kb.values()]),
          "ms": bk_ms, "plain_ms": bk_plain_ms, "bound_ms": bk_bound[0],
-         "bound_by": bk_bound[1], "library_ms": None},
+         "bound_by": bk_bound[1], "library_ms": None, "plan": bk_plan},
         {"name": "blind_rotate_latency", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/latency_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/latency_kernel.py:220",
@@ -890,13 +957,14 @@ def main() -> int:
             ("blind_rotate_fused_wide_pipe", "blind_rotate_fused_wide_pipe",
              "wide_pipe_kernel", 723),
             ("blind_rotate_fused_cols", "blind_rotate_fused_cols", "cols_kernel", 664)):
-        ms, plain_ms, err, key_limbs = ws[name]
+        ms, plain_ms, err, key_limbs, plan = ws[name]
         b = bound(r * n * k1 * n * key_limbs * steps * MAIN_B, acc_bytes + nbytes(sk.bk_u32))
         record["kernels"].append({
             "name": name, "route": "cuda", "source": f"tfhe_tpu_torch/csrc/{source}.cu",
             "replaces": f"tfhe_tpu/ops/pallas/blind_rotate_kernel.py:{line}",
             "launches": ws_launches[symbol], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "plan": plan})
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,8 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
   * Kernel B (``blind_rotate_fused``) alone, both digit modes, at
     B = 8 .. 2048;
   * the SM clock and power draw while Kernel B runs at B=1024 (fusedb),
-    sampled by ``nvidia-smi`` every 100 ms, and from them the u32
-    multiply-adds per clock per busy SM;
+    sampled by ``nvidia-smi`` every 100 ms, and from them the clocks per
+    int8 ``mma.sync`` m16n8k32 per busy SM sub-partition;
   * Kernel C (``blind_rotate_latency``) alone at B = 1 .. 8 (V=1) and
     B = 1 .. 4 (V=3), with its launch plan, and the SM clock while it runs
     at B=1;
@@ -21,6 +21,9 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
   * Kernels E, F and G (``blind_rotate_fused_pipe``, ``_wide_pipe``,
     ``_cols``) alone at B = 8 .. 2048 and Kernel B at key_limbs=3 at
     B=1024, with their launch plans;
+  * where Kernel B's time goes at B=1024: the kernel built again with its
+    plane build, its row barrier or its digit phase cut out of a copy of
+    its source (``KERNEL_B_CUTS``), timed in turns with the whole kernel;
   * one NAND gate per impl: fusedb, fused and nttf at B=1024, auto (Kernel A)
     at B=64 and B=1024, conv (Kernel H) and matmul (plain) at B=64, the
     small-batch impls fusedl, bmmpl, bmmp and fusedb at B <= 64, and nttf,
@@ -60,9 +63,20 @@ GATES = (("fusedb", 1024), ("fused", 1024), ("auto", 64), ("auto", 1024), ("conv
 SCHEDULES = (("kernelE_fusedp", "blind_rotate_fused_pipe", {}),
              ("kernelF_fusedwb", "blind_rotate_fused_wide_pipe", {"balanced": True}),
              ("kernelG_fusedc", "blind_rotate_fused_cols", {}))
-PROFILED = (("fusedb", 1024), ("nttf", 1024), ("auto", 64), ("conv", 64), ("bmmp", 64),
-            ("fusedl", 1))
-IMAD_PER_CLK_PER_SM = 64  # Hopper's INT32 multiply-add lanes per SM
+PROFILED = (("fusedb", 1024), ("fusedb3", 1024), ("nttf", 1024), ("auto", 64), ("conv", 64),
+            ("bmmp", 64), ("fusedl", 1))
+#: Kernel B's phases, cut out of a copy of csrc/blind_rotate_kernel.cu to
+#: time what each costs: name -> (text, replacement) pairs, each text found
+#: once.  A cut kernel's results are wrong; only its time is read.
+_NO_BUILD = ("if (j0 == 0 && graw_next != nullptr)", "if (false)")
+_NO_BARRIER = ("        cp_async_commit_wait();\n        __syncthreads();\n",
+               "        cp_async_commit_wait();\n")
+_NO_DIGITS = ("      whole_scan::rotate_decompose(", "      if (idx < 0) whole_scan::rotate_decompose(")
+KERNEL_B_CUTS = {"no plane build": (_NO_BUILD,),
+                 "no plane build, no row barrier": (_NO_BUILD, _NO_BARRIER),
+                 "no digit phase": (_NO_DIGITS,),
+                 "mma loop alone": (_NO_BUILD, _NO_BARRIER, _NO_DIGITS)}
+SUBPARTITIONS_PER_SM = 4  # each with its own tensor core
 
 
 def log(msg: str) -> None:
@@ -182,6 +196,54 @@ def dp4a_per_sample_step(p) -> int:
     return len(ntt.PRIMES) * per_prime // 4
 
 
+def kernel_b_cuts(brk, p, acc0, bk, a_hat) -> dict:
+    """Kernel B's ms with each of KERNEL_B_CUTS (copies built into
+    build/tfhe_tpu_torch/kernel_b_cuts/, all nvcc processes at once), in
+    turns with the whole kernel (whole, cuts, whole), for 'fusedb' and
+    'fusedb3', 2 rounds each."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tfhe_tpu_torch.ops.cuda import _build
+    from tfhe_tpu_torch.ops.decomposer import balanced_offset
+
+    src = (_build.CSRC / "blind_rotate_kernel.cu").read_text()
+    out = _build.BUILD_DIR / "kernel_b_cuts"
+    out.mkdir(parents=True, exist_ok=True)
+
+    def build(name):
+        text = src
+        for old, new in KERNEL_B_CUTS[name]:
+            if text.count(old) != 1:
+                raise RuntimeError(f"cut {name!r}: {old!r} is not in the kernel source once")
+            text = text.replace(old, new)
+        cu = out / (name.replace(" ", "_").replace(",", "") + ".cu")
+        cu.write_text(text)
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+                               str(cu.with_suffix(".so")), str(cu)], capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the cut {name!r}:\n{proc.stderr}")
+        kernel = _build.CudaKernel(brk.KERNEL.source, brk.KERNEL.symbol, brk.KERNEL.argtypes)
+        kernel._lib = ctypes.CDLL(str(cu.with_suffix(".so")))
+        kernel._fn = getattr(kernel._lib, kernel.symbol)
+        kernel._fn.argtypes, kernel._fn.restype = kernel.argtypes, ctypes.c_int
+        kernel._lib.tfhe_cuda_error_string.argtypes = [ctypes.c_int]
+        kernel._lib.tfhe_cuda_error_string.restype = ctypes.c_char_p
+        return name, kernel
+
+    with ThreadPoolExecutor(len(KERNEL_B_CUTS)) as pool:
+        kernels = dict(pool.map(build, KERNEL_B_CUTS))
+    kernels = {"whole": brk.KERNEL, **kernels}
+    res = {}
+    for mode, key_limbs in (("fusedb", 4), ("fusedb3", 3)):
+        for name in [*kernels, "whole"]:
+            t = event_rounds(lambda: brk._launch(kernels[name], "fused", p, acc0, bk, a_hat, 1,
+                                                 balanced_offset(p.pbs_decomposer), key_limbs), 2)
+            res.setdefault(f"{mode} {name}", []).extend(t)
+            log(f"Kernel B {mode} B=1024, {name}: ms {t}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("measure_torch: needs a CUDA card")
@@ -239,28 +301,30 @@ def main() -> int:
             log(f"Kernel B {mode} B={b}: ms {t}")
 
     # SM clock during Kernel B: one CTA holds its samples for all steps on one
-    # SM, so the multiply-add rate per busy SM is that CTA's work over the
-    # kernel's time.
+    # SM, so the mma.sync rate per busy SM is that CTA's m16n8k32 count (one
+    # per 16 outputs, 32 input coefficients, row, column and limb, for its 8
+    # samples whatever S is) over the kernel's time.
     acc0, a_hat = rotation_inputs(1024)
     ms, samples = sampled_clocks(
         lambda: brk.blind_rotate_fused(p, acc0, sk.bk_u32, a_hat, True), 3)
     k1, n = p.k + 1, p.degree
-    spc = brk.last_plan["blind_rotate_fused"]["samples_per_cta"]
-    imad_per_cta = spc * p.n * (k1 * p.pbs_decomposer.levels) * n * k1 * n
-    per_sm_rate = imad_per_cta / (ms / 1e3)
-    clocked = {"ms_per_call": ms, "samples_mhz_w": samples, "imad_per_s_per_sm": per_sm_rate}
+    mma_per_cta = p.n * (k1 * p.pbs_decomposer.levels) * k1 * 4 * (n // 16) * (n // 32)
+    per_sm_rate = mma_per_cta / (ms / 1e3)
+    clocked = {"ms_per_call": ms, "samples_mhz_w": samples, "mma_per_s_per_sm": per_sm_rate,
+               "plan": dict(brk.last_plan["blind_rotate_fused"])}
     if not samples:
         raise RuntimeError("nvidia-smi gave no sample inside the Kernel B window")
     clocks = sorted(s[0] for s in samples)
     lo, hi = clocks[0], clocks[-1]
-    share = [per_sm_rate / (c * 1e6) / IMAD_PER_CLK_PER_SM for c in (hi, lo)]
+    clk_per_mma = [c * 1e6 * SUBPARTITIONS_PER_SM / per_sm_rate for c in (hi, lo)]
     clocked.update(sm_mhz_min=lo, sm_mhz_max=hi, sm_mhz_median=clocks[len(clocks) // 2],
                    power_w_max=max(s[1] for s in samples),
-                   imad_share_of_peak_at_max_and_min_clock=share)
+                   clocks_per_mma_per_subpartition_at_max_and_min_clock=clk_per_mma)
     res["kernelB_fusedb_B1024_clocked"] = clocked
     log(f"Kernel B fusedb B=1024 under nvidia-smi: {ms} ms per call, {len(samples)} samples, "
         f"SM clock {lo}-{hi} MHz, power up to {clocked['power_w_max']} W, "
-        f"{per_sm_rate:.6e} IMAD/s per SM, share of the {IMAD_PER_CLK_PER_SM}/clk peak {share}")
+        f"{per_sm_rate:.6e} mma.sync m16n8k32/s per SM, clocks per mma per sub-partition "
+        f"{clk_per_mma}")
 
     # Kernel C: the latency kernel over its batch range, both forms
     for v, batches in ((1, range(1, 9)), (3, range(1, 5))):
@@ -327,6 +391,7 @@ def main() -> int:
     t = event_rounds(lambda: brk.blind_rotate_fused(p, acc0, sk.bk_u32, a_hat, True, 3), 3)
     res["kernelB_fusedb3_B1024_ms"] = t
     log(f"Kernel B fusedb3 (key_limbs=3) B=1024: ms {t}")
+    res["kernelB_B1024_cuts_ms"] = kernel_b_cuts(brk, p, acc0, sk.bk_u32, a_hat)
 
     for impl, b in GATES:
         t = event_rounds(lambda: tfhe.gates.nand(sk, ca[:b], cb[:b], impl=impl),

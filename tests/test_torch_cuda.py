@@ -285,6 +285,43 @@ def test_blind_rotate_kernel_matches_twin_on_card(cuda_device, name, batch, bala
     assert torch.equal(got, brk.blind_rotate_fused_ref(p, acc0, bk, a_hat, balanced=balanced))
 
 
+def kernel_b_key(rng, shape, key):
+    """A random key, one whose every byte is 0x80, or one whose every low
+    byte is 0x80 (the truncated key's hard case)."""
+    words = rnd_u32(rng, shape)
+    if key == "0x80":
+        words[:] = 0x80808080
+    elif key == "low-0x80":
+        words = (words & np.uint32(0xFFFFFF00)) | np.uint32(0x80)
+    return words
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["random", "0x80", "low-0x80"])
+@pytest.mark.parametrize("batch", [1, 7, 8, 9, 64, 1024])
+def test_blind_rotate_kernel_matches_twin_at_every_batch_on_card(cuda_device, batch, key):
+    """Kernel B against its twin over 3 steps at test_insecure, in all four
+    modes (fused, fusedb, fused3, fusedb3), one launch each: a part-filled
+    CTA (B = 1, 7, 9), whole ones (8, 64) and the main path's batch."""
+    p = get_params("test_insecure")
+    k1, n = p.glwe_dimension + 1, p.degree
+    rng = np.random.default_rng(70 + batch)
+    bk = to_torch_u32(kernel_b_key(rng, (3, k1 * p.pbs_decomposer.levels, k1, n), key),
+                      cuda_device)
+    acc0 = to_torch_u32(rnd_u32(rng, (batch, k1, n)), cuda_device)
+    a_hat = torch.from_numpy(rng.integers(0, 2 * n, size=(3, batch), dtype=np.int32)).to(
+        cuda_device)
+    for balanced in (False, True):
+        for key_limbs in (4, 3):
+            before = brk.KERNEL.launches
+            got = brk.blind_rotate_fused(p, acc0, bk, a_hat, balanced, key_limbs)
+            torch.cuda.synchronize()
+            assert brk.KERNEL.launches == before + 1
+            assert brk.last_plan["blind_rotate_fused"]["samples_per_cta"] == 8
+            assert torch.equal(got, brk.blind_rotate_fused_ref(p, acc0, bk, a_hat, balanced,
+                                                               key_limbs))
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_unsupported_shapes_on_card(cuda_device):
     """The C entry points check the shapes their thread tiles allow, and the
@@ -301,13 +338,24 @@ def test_kernels_refuse_unsupported_shapes_on_card(cuda_device):
         with pytest.raises(RuntimeError, match="invalid argument"):
             launch_with_plan(epk.KERNEL, d, g, out, 2, 1, 2, n, (16, 2, 1, 2, 1))
     assert epk.KERNEL.launches == before
-    k1, n = 3, 1024  # (k+1)*N/8 = 384 threads > 256
-    acc0 = to_torch_u32(rnd_u32(rng, (1, k1, n)), cuda_device)
-    bk = to_torch_u32(rnd_u32(rng, (1, k1 * p.pbs_decomposer.levels, k1, n)), cuda_device)
-    a_hat = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    # Kernel B takes N a power of two from 64 to 512 (at most 8 warps of 4
+    # 16-output tiles), any C: not N=1024 (k+1=3), large_2048's N=2048
+    # (k+1=2), N=32 or N=96
     before = brk.KERNEL.launches
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        brk.blind_rotate_fused(p, acc0, bk, a_hat)
+    for k1, n in ((3, 1024), (2, 2048), (2, 32), (2, 96)):
+        acc0 = to_torch_u32(rnd_u32(rng, (1, k1, n)), cuda_device)
+        bk = to_torch_u32(rnd_u32(rng, (1, k1 * p.pbs_decomposer.levels, k1, n)), cuda_device)
+        a_hat = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            brk.blind_rotate_fused(p, acc0, bk, a_hat)
+    # a key that is not 16-byte aligned (Kernel B copies it in 16-byte pieces)
+    k1, n = 2, 64
+    shape = (1, k1 * p.pbs_decomposer.levels, k1, n)
+    flat = torch.zeros(int(np.prod(shape)) + 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        brk.blind_rotate_fused(p, to_torch_u32(rnd_u32(rng, (1, k1, n)), cuda_device),
+                               flat[1:].view(shape), torch.zeros((1, 1), dtype=torch.int32,
+                                                                 device=cuda_device))
     assert brk.KERNEL.launches == before
 
 

@@ -108,6 +108,123 @@ def test_truncation_follows_the_sign_twist():
 
 
 # ---------------------------------------------------------------------------
+# Kernel B's tensor-core step, emulated fragment by fragment
+# ---------------------------------------------------------------------------
+
+
+def limb_plane_copies(g_row):
+    """The 16 staged copies of ``csrc/limb_planes.cuh:build_planes`` for one
+    key row g u32[N], as bytes [limb l, shift s, word w, byte j] =
+    P_l[(4w + s + j) mod 2N], P_l[x] = limb_l(ext[(-x) mod 2N]), ext = [g, -g]."""
+    n = g_row.size
+    ext = np.concatenate([g_row, (np.uint32(0) - g_row).astype(np.uint32)])
+    words = (ext + np.uint32(0x80808080)) ^ np.uint32(0x80808080)
+    limbs = np.stack([((words >> np.uint32(8 * l)) & np.uint32(0xFF)).astype(np.uint8)
+                      for l in range(4)]).view(np.int8)  # limb_l(ext[i])
+    x = 4 * np.arange(n // 2)[None, :, None] + np.arange(4)[:, None, None] + np.arange(4)
+    return limbs[:, (-x) % (2 * n)]  # [4, 4, N/2, 4]
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_b_a_reads(n):
+    """Where ``blind_rotate_kernel.cu:mma_row`` reads its A fragments, and
+    which output each M row is.  A warp owns T = 4 tiles (2 at N=64) 32
+    outputs apart, from o_t = 32T*(warp // 2) + 16*(warp % 2); row g of a
+    tile is output o_t + 32a + 8 + g, row g+8 output o_t + 32a + g.  Lane
+    (g, t) reads copy x0 & 3, x0 = (4t - o_t - 8 - g) mod 2N; tile a at K
+    step j takes the quad loaded at step j - a, words ((x0 >> 2) + 8(j - a))
+    mod N/2 + 2i of the copy (its wrap copy past N/2), i = 0..3, as its
+    registers a0..a3: rows g, g+8, g, g+8 at K offsets 4t, 4t, 16+4t, 16+4t
+    (PTX m16n8k32 A fragment).  Returns the flat index into one limb's
+    copies [4, N/2 + 8 words, 4 bytes] of each A entry [rows, N] and the
+    output of each row, rows = (warp, tile, M row)."""
+    tiles = 4 if n >= 128 else 2
+    warps, steps = n // (16 * tiles), n // 32
+    shape = (warps, tiles, 16, steps, 32)  # [warp, tile, row, K step, k]
+    copy, word, byte = (np.zeros(shape, np.int64) for _ in range(3))
+    wv, av, jv = np.ix_(np.arange(warps), np.arange(tiles), np.arange(steps))
+    o_t = 32 * tiles * (wv // 2) + 16 * (wv % 2)
+    for g in range(8):
+        for t in range(4):
+            x0 = (4 * t - o_t - 8 - g) % (2 * n)
+            base = ((x0 >> 2) + 8 * (jv - av)) % (n // 2)
+            for i, (row, k0) in enumerate(((g, 4 * t), (g + 8, 4 * t), (g, 16 + 4 * t),
+                                           (g + 8, 16 + 4 * t))):
+                for j in range(4):
+                    copy[:, :, row, :, k0 + j] = np.broadcast_to(x0 & 3, base.shape)
+                    word[:, :, row, :, k0 + j] = base + 2 * i
+                    byte[:, :, row, :, k0 + j] = j
+    rows = np.arange(16)
+    out = (o_t[:, :, 0, None] + 32 * av[:, :, 0, None] + np.where(rows < 8, rows + 8, rows - 8))
+    flat = (copy * (n // 2 + 8) + word) * 4 + byte
+    return flat.reshape(warps * tiles * 16, n), out.reshape(-1)
+
+
+def kernel_b_step(digits, words, spc, key_limbs):
+    """One step's delta as Kernel B computes it, for the spc samples of one
+    CTA: digits int8 [spc, R, N], key step u32 [R, C, N] -> (int64 limb sums
+    [spc, C*4, N] with limb 0 left out at key_limbs=3, u32 delta [spc, C, N]).
+    Each (r, c, l) is an mma.sync product A [N rows, N] x B [N, 8]: A read
+    from the limb planes (with their wrap copy) as ``kernel_b_a_reads``
+    says, B[k, n] = digit of sample n mod spc at k (the spare columns of
+    spc < 8 repeat a sample), and the accumulator fragment's c0..c3 of lane
+    (g, t), rows g (c0, c1) and g+8 (c2, c3), samples 2t, 2t+1, stored at
+    the rows' outputs for the samples < spc."""
+    _, r_rows, n = digits.shape
+    c_cols = words.shape[1]
+    flat, out = kernel_b_a_reads(n)
+    lmin = 4 - key_limbs
+    b_op = digits[np.arange(8) % spc].astype(np.float64)  # [8, R, N]
+    # the (M row of every tile, sample) each lane's c0..c3 hold, samples < spc
+    frag = [(g + 8 * (i >> 1), 2 * t + (i & 1)) for g in range(8) for t in range(4)
+            for i in range(4) if 2 * t + (i & 1) < spc]
+    rows = (np.arange(0, n, 16)[:, None] + np.array([f[0] for f in frag])).reshape(-1)
+    samples = np.tile(np.array([f[1] for f in frag]), n // 16)
+    sums = np.zeros((spc, c_cols * 4, n), np.int64)
+    for r in range(r_rows):
+        for c in range(c_cols):
+            planes = limb_plane_copies(words[r, c])
+            planes = np.concatenate([planes, planes[:, :, :8]], axis=2)  # the wrap copy
+            for l in range(lmin, 4):
+                a_op = np.take(planes[l], flat).astype(np.float64)  # [N rows, N]
+                d = (a_op @ b_op[:, r].T).astype(np.int64)  # [N rows, 8 samples]
+                np.add.at(sums[:, c * 4 + l], (samples, out[rows]), d[rows, samples])
+    assert np.abs(sums).max() < 2**31  # exact in s32
+    limb_w = np.array([1 << (8 * l) for l in range(4)], np.uint64)
+    delta = (sums.reshape(spc, c_cols, 4, n).astype(np.uint64)
+             * limb_w[None, None, :, None]).sum(2) & np.uint64(0xFFFFFFFF)
+    return sums, delta.astype(np.uint32)
+
+
+@pytest.mark.parametrize("name,spc,key", [
+    *((name, spc, key) for name, spc in (("nano", 2), ("nano", 8), ("test_insecure", 8))
+      for key in ("random", "low-0x80", "0x80")),
+    ("test_insecure", 4, "random")])
+def test_kernel_b_fragment_reads_match_twin_step(name, spc, key):
+    """Kernel B's step read fragment by fragment (the diagonal walk of its
+    window over the shifted limb planes, the digits as B, the accumulator
+    layout) gives the twin's limb sums ``ep_contract_matmul`` and its delta
+    ``ep_combine(...)`` bit for bit, at key_limbs 4 and 3, on a random key,
+    one whose every low byte is 0x80 (the truncated key's hard case) and one
+    whose every byte is 0x80."""
+    p = t_get_params(name)
+    k1, n = p.glwe_dimension + 1, p.degree
+    r = k1 * p.pbs_decomposer.levels
+    rng = np.random.default_rng(95)
+    words = rnd_u32(rng, (r, k1, n))
+    if key == "low-0x80":
+        words = (words & np.uint32(0xFFFFFF00)) | np.uint32(0x80)
+    elif key == "0x80":
+        words = np.full((r, k1, n), 0x80808080, np.uint32)
+    digits = rng.integers(-8, 17, size=(spc, r, n), dtype=np.int8)
+    for key_limbs in (4, 3):
+        sums, delta = kernel_b_step(digits, words, spc, key_limbs)
+        want = poly.ep_contract_matmul(torch.from_numpy(digits), to_torch_u32(words), key_limbs)
+        assert np.array_equal(sums, want.numpy())  # limb 0 is 0 in both at key_limbs=3
+        assert np.array_equal(delta, to_numpy_u32(poly.ep_combine(want, k1)))
+
+
+# ---------------------------------------------------------------------------
 # nano: each twin against its Pallas kernel in interpret mode
 # ---------------------------------------------------------------------------
 
@@ -234,7 +351,7 @@ H100_OPTIN = 232448  # bytes of opt-in shared memory per block on an H100
 
 
 @pytest.mark.parametrize("kind,bytes_at_8,on_h100", [
-    ("fused", 136736, 8), ("pipe", 201280, 8), ("wide_pipe", 279616, 4), ("cols", 143904, 8)])
+    ("fused", 163104, 8), ("pipe", 201280, 8), ("wide_pipe", 279616, 4), ("cols", 143904, 8)])
 def test_samples_per_cta_on_h100_budget(kind, bytes_at_8, on_h100):
     """At default_128 every kernel but F keeps 8 samples per CTA (Kernel B's
     measured times stay comparable); F's two staged key blocks leave room
@@ -251,7 +368,8 @@ def test_samples_per_cta_under_smaller_budgets():
     def pick(kind, budget):
         return _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s), budget)
 
-    assert pick("fused", 100_000) == 4
+    assert pick("fused", 100_000) == 2  # 4 samples need 100,496 bytes
+    assert pick("fused", brk.smem_bytes("fused", p, 4)) == 4
     assert pick("fused", brk.smem_bytes("fused", p, 2)) == 2  # the bound is inclusive
     assert pick("fused", brk.smem_bytes("fused", p, 2) - 1) == 1
     assert pick("pipe", 48 * 1024) == 1
@@ -269,7 +387,7 @@ def test_samples_per_cta_at_larger_degrees():
     picks = {kind: _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s),
                                                H100_OPTIN)
              for kind in ("fused", "pipe", "wide_pipe", "cols")}
-    assert picks == {"fused": 4, "pipe": 2, "wide_pipe": None, "cols": 2}
+    assert picks == {"fused": 2, "pipe": 2, "wide_pipe": None, "cols": 2}
 
 
 # ---------------------------------------------------------------------------

@@ -3,117 +3,234 @@
 // Replaces: tfhe_tpu/ops/pallas/blind_rotate_kernel.py, blind_rotate_fused
 // (wide body _kernel_wide with _rotate_negacyclic, _decompose_kept_int8 and
 // _decompose_balanced_int8), key_limbs=4 (the exact mode) and key_limbs=3
-// (the low byte of each sign-twisted key word dropped; whole_scan.cuh).
-// The step is the one whole_scan.cuh writes out.
+// (the low balanced byte of each sign-twisted key word dropped).  The step
+// is the one whole_scan.cuh writes out.
 //
-// The product is accumulated directly in wrapping u32 multiply-adds.  That is
-// bit-identical to the TPU kernel's int8 limb planes, because the limb
-// recombination sum_l limb_l * 2^(8l) is an exact mod-2^32 reconstruction of
-// the key word (of its kept limbs at key_limbs=3).  So key_limbs=3 saves no
-// work here: it is one multiply-add per key word either way.
+// As the TPU kernel does, the product is taken as int8 limb planes: with
+// limb_l the balanced bytes of the sign-twisted key word w = +-g,
 //
-// What bounds it on the H100: integer multiply-adds, R*N*C*N per sample and
-// step (1.4e7 at default_128; 1.05e13 for B=1024 over 722 steps).  Device
-// memory is no limit.  The key streams once per step per CTA (110 KB at
-// default_128, served from L2 since every CTA reads the same step), and the
-// accumulators never leave the SM.
+//   sum_l[c, o] = sum_{r, m} d[r, m] * limb_l(w[r, c, (o - m) mod 2N])   (exact in s32:
+//                 |sum| <= R*N*16*128 < 2^31)
+//   acc[c, o]  += sum_l 2^(8l) * sum_l                                     (mod 2^32)
 //
-// Design: the TPU kernel keeps R*(k+1)*4*N^2 int8 Toeplitz planes resident
-// on chip, hundreds of times the 227 KB of shared memory of an SM.  Here no
-// Toeplitz operand exists.  Each CTA owns S samples for all n steps, with
-// no inter-CTA synchronisation (samples are independent), and keeps their
-// accumulators (S*C*N u32) and digits (S*R*N int8) in shared memory: 134 KB
-// at default_128 with S=8.  The wrapper picks S in {8, 4, 2, 1}, the largest
-// whose shared memory fits the card's opt-in budget.  The rotation is a
-// gather with the closed-form sign (the TPU's barrel shifter exists only
-// because a gather was slow there).  Per digit row r the CTA stages w(+-g)
-// of every column (C*2N u32, padded one word in nine against bank conflicts)
-// and each thread reads them on the fly.  A thread owns kU=8 consecutive
-// outputs o of one column for all S samples (8*S u32 accumulators in
-// registers).  It walks m in chunks of 8 with a 15-word sliding window, so
-// each staged key word feeds S samples x up to 8 multiply-adds.  Tensor
-// cores (int8 mma on limb planes), TMA staging of the key and a pipeline
-// over steps are later work.
+// which is the u32 product exactly, because the limbs recombine to w mod
+// 2^32.  At key_limbs=3 limb 0 is not computed at all, which is
+// whole_scan::key_word's truncation.
+//
+// What bounds it on the H100: int8 tensor-core operations, R*C*L*N*N
+// multiply-adds per sample and step (L = key_limbs; 5.7e7 at default_128,
+// 4.2e13 for B=1024 over 722 steps: 42.3 ms at the 1979e12 ops/s peak).
+// Device memory is no limit: the key streams once per step per CTA (110 KB
+// at default_128, served from L2 since every CTA reads the same step) and
+// the accumulators never leave the SM.  mma.sync reaches about half that
+// peak at best: this kernel's loop issues one m16n8k32 per ~9.5 clocks per
+// SM sub-partition, and the plane build and the digit phase stop it for a
+// quarter of the kernel's time (PERF.md).
+//
+// Design: each CTA owns S samples (S in {8, 4, 2, 1}, the largest whose
+// shared memory fits the card's opt-in budget; 163 KB at default_128 with
+// S=8) for all n steps, with no inter-CTA synchronisation, and keeps their
+// accumulators (S*C*N u32) and digits (R*S rows of N int8, padded by 16
+// bytes) in shared memory.  The rotation is a gather with the closed-form
+// sign, then the digits (whole_scan::rotate_decompose).  The sums run on
+// mma.sync m16n8k32 s8 x s8 -> s32 with the circulant as A (M = 16 outputs
+// o), the digits as B (N = the 8 samples; with S < 8 the spare columns
+// repeat a sample and are dropped) and the input coefficients m as K.  An
+// A register holds the four bytes P_l[x .. x+3] of row o, x = (m0 + 4t - o)
+// mod 2N, one aligned load from the byte-shifted limb planes of
+// limb_planes.cuh; a B register holds 4 consecutive digits of one sample.
+//
+// A warp owns T = 4 M tiles (2 at N=64) 32 outputs apart, of one column,
+// and all L kept limbs: L*T*4 s32 accumulators per thread.  With the two
+// halves of each tile's M rows swapped (row g is output o + 8 + g, row g+8
+// output o + g), a lane's four A registers are the words P_l[x + 8i], i =
+// 0..3, and tile a's quad at K step j is the quad of x + 32(j - a), which
+// the warp's first tile loaded at step j - a.  So each K step loads one
+// quad per limb (4 words) for T mmas, the quads rotate through T register
+// slots that the compiler fixes (the K steps run in groups of T), and 2
+// digit words per K step serve all L*T mmas.  Columns run one after another
+// (the accumulators of all C columns would pass the register file); at a
+// column's end each thread recombines its limbs and adds them to the
+// accumulators in shared memory.  Key rows run in the order (step, c, r):
+// while a row's mmas run, each warp builds its share of the next row's
+// planes into the second plane buffer (after its first group of K steps,
+// with those mmas in flight) and the row after it comes in by cp.async, so
+// one barrier per row separates them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "limb_planes.cuh"
 #include "whole_scan.cuh"
 
 namespace {
 
-using whole_scan::kU;
-using whole_scan::pad;
+using limb_planes::build_planes;
+using limb_planes::copy_words;
+using limb_planes::cp_async16;
+using limb_planes::cp_async_commit_wait;
+using limb_planes::digit_row_bytes;
+using limb_planes::kLimbs;
+using limb_planes::mma_s8;
 using whole_scan::Shape;
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;  // N/(16*T) warps: 8 at N=512
+
+// M tiles per warp: 4, or 2 at N=64 (a warp's tiles lie 32 outputs apart,
+// and the K steps, N/32, run in groups of T).
+__host__ __device__ inline int tiles_per_warp(int N) { return N >= 128 ? 4 : 2; }
+
+// Words of one set of 16 plane copies.
+__host__ __device__ inline int plane_set_words(int N) { return kLimbs * 4 * copy_words(N); }
 
 __host__ size_t smem_bytes(const Shape& s) {
   const size_t S = s.spc, C = s.C, N = s.N, R = C * s.levels;
-  return 4 * (S * C * N + C * pad(2 * s.N)) + S * R * N + 4 * S;
+  return 4 * S * C * N                                        // accumulators
+         + 4 * 2 * static_cast<size_t>(plane_set_words(s.N))  // two plane buffers
+         + 4 * 2 * N                                          // two raw key rows
+         + R * S * digit_row_bytes(s.N)                       // digits
+         + 4 * S;                                             // exponents
 }
 
-template <int S>
+// One staged key row's mmas for this warp: all N/32 K steps, the L kept
+// limbs (4 - L .. 3), the warp's T tiles.  pl points at the lane's copy
+// (x0 & 3) of the first kept limb, x0 = (4t - o_t - 8 - g) mod 2N for the
+// warp's first tile o_t; tile a is o_t + 32a.  With the two halves of the M
+// rows swapped (row g is output o_t + 8 + g, row g + 8 output o_t + g), the
+// four A registers of a lane are P_l[x + 8i .. +3], i = 0..3: words w, w+2,
+// w+4, w+6 of its copy, w = x >> 2.  Tile a at K step j reads the quad of x0
+// + 32(j - a), which tile 0 loaded at step j - a: each K step loads one quad
+// per limb (4 words) for T mmas, and the quads rotate through T register
+// slots, fixed at compile time because the K steps run in groups of T.
+// drow points at word t of the lane's digit row (sample g mod S).  When
+// graw_next is not null, the warp builds its share of the next row's planes
+// (from graw_next into planes_next) after its first group of K steps, while
+// those mmas are still in the tensor pipe.
+template <int L, int T>
+__device__ __forceinline__ void mma_row(int (&sums)[L][T][4], const uint32_t* pl,
+                                        const uint32_t* drow, int N, int w0,
+                                        const uint32_t* graw_next, uint32_t* planes_next) {
+  const int cw = copy_words(N), wmask = N / 2 - 1;
+  uint32_t quad[L][T][4];  // quad[l][(j - a) mod T] = tile a's registers at step j
+  // the quads of steps -1 .. -(T-1); the copies repeat their first 8 words
+  // after the last, so the words w+2i of a masked w need no second mask
+#pragma unroll
+  for (int jj = 1; jj < T; ++jj) {
+    const uint32_t* p = pl + ((w0 - 8 * jj) & wmask);
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) quad[l][T - jj][i] = p[l * 4 * cw + 2 * i];
+  }
+  for (int j0 = 0; j0 < N / 32; j0 += T) {
+#pragma unroll
+    for (int jj = 0; jj < T; ++jj) {
+      const int j = j0 + jj;
+      const uint32_t b0 = drow[8 * j], b1 = drow[8 * j + 4];
+      const uint32_t* p = pl + ((w0 + 8 * j) & wmask);
+#pragma unroll
+      for (int l = 0; l < L; ++l)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) quad[l][jj][i] = p[l * 4 * cw + 2 * i];
+#pragma unroll
+      for (int l = 0; l < L; ++l)
+#pragma unroll
+        for (int a = 0; a < T; ++a) mma_s8(sums[l][a], quad[l][(jj - a + T) % T], b0, b1);
+    }
+    if (j0 == 0 && graw_next != nullptr) build_planes<true>(graw_next, planes_next, N);
+  }
+}
+
+// L: key limbs kept (4, or 3 with limb 0 dropped); T: tiles_per_warp(N).
+template <int L, int T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 blind_rotate_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
                     const int32_t* __restrict__ a_hat, uint32_t* __restrict__ out, Shape s) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int N = s.N, C = s.C, R = C * s.levels, CN = C * N;
-  const int mask2 = 2 * N - 1, gstride = pad(2 * N);
-  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);           // [S][C][N]
-  uint32_t* gext = acc + S * CN;                                // [C][pad(2N)]
-  int8_t* dig = reinterpret_cast<int8_t*>(gext + C * gstride);  // [S][R][N]
-  int* a_s = reinterpret_cast<int*>(dig + S * R * N);           // [S]
+  const int S = s.spc, N = s.N, C = s.C, R = C * s.levels, CN = C * N;
+  const int mask2 = 2 * N - 1, ps = plane_set_words(N), drow = digit_row_bytes(N);
+  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);      // [S][C][N]
+  uint32_t* planes = acc + S * CN;                         // [2][16 copies]
+  uint32_t* graw = planes + 2 * ps;                        // [2][N]
+  int8_t* dig = reinterpret_cast<int8_t*>(graw + 2 * N);   // [R][S][drow]
+  int* a_s = reinterpret_cast<int*>(dig + R * S * drow);   // [S]
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int b0 = blockIdx.x * S;
   const int nb = min(S, s.B - b0);
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // the warp's first tile: warp pairs share 32T outputs, interleaved by 16
+  const int o_t = 32 * T * (warp >> 1) + 16 * (warp & 1);
+  const int x0 = (4 * t - o_t - 8 - g) & mask2;
+  const int lane_copy = (kLimbs - L) * 4 * copy_words(N) + (x0 & 3) * copy_words(N);
+  const int lane_dig = (g & (S - 1)) * (drow / 4) + t;  // words
 
   for (int idx = tid; idx < S * CN; idx += nthr) {
     const int bb = idx / CN;
     acc[idx] = bb < nb ? acc0[static_cast<size_t>(b0) * CN + idx] : 0u;
   }
-  // this thread's outputs: column c, coefficients o0 .. o0+kU-1
-  const int units = CN / kU;
-  const bool active = tid < units;
-  const int c = active ? tid / (N / kU) : 0;
-  const int o0 = active ? (tid % (N / kU)) * kU : 0;
+  // key row q = (step, c, r) of the sequence, 16-byte pieces into graw[q & 1]
+  const int rows = s.n_steps * R * C;
+  auto issue = [&](int q) {
+    const int step = q / (R * C), cr = q - step * R * C, c = cr / R, r = cr - c * R;
+    const uint32_t* src = bk + ((static_cast<size_t>(step) * R + r) * C + c) * N;
+    uint32_t* dst = graw + (q & 1) * N;
+    for (int ch = tid; ch < N / 4; ch += nthr) cp_async16(dst + 4 * ch, src + 4 * ch, true);
+  };
+  if (rows > 0) {
+    issue(0);
+    cp_async_commit_wait();
+    __syncthreads();
+    build_planes<true>(graw, planes, N);
+    if (rows > 1) issue(1);
+  }
 
+  int q = 0;
   for (int step = 0; step < s.n_steps; ++step) {
+    __syncthreads();  // last step's accumulator updates
     if (tid < S)
       a_s[tid] = tid < nb ? (a_hat[static_cast<size_t>(step) * s.B + b0 + tid] & mask2) : 0;
-    __syncthreads();  // last step's acc updates and this step's exponents
+    __syncthreads();
     for (int idx = tid; idx < S * CN; idx += nthr) {
       const int bb = idx / CN, rem = idx - bb * CN;
       const int p = rem / N, i = rem - p * N;
       whole_scan::rotate_decompose(acc + bb * CN + p * N, i, a_s[bb], s,
-                                   dig + (bb * R + p * s.levels) * N + i, N);
+                                   dig + (p * s.levels * S + bb) * drow + i, S * drow);
     }
-    __syncthreads();
-
-    uint32_t delta[S][kU];
+    // the first row's barrier below also orders the digits before the mmas
+    for (int c = 0; c < C; ++c) {
+      int sums[L][T][4];
 #pragma unroll
-    for (int bb = 0; bb < S; ++bb)
+      for (int l = 0; l < L; ++l)
 #pragma unroll
-      for (int u = 0; u < kU; ++u) delta[bb][u] = 0u;
-
-    const uint32_t* bk_step = bk + static_cast<size_t>(step) * R * CN;
-    for (int r = 0; r < R; ++r) {
-      for (int j = tid; j < C * 2 * N; j += nthr) {
-        const int cc = j / (2 * N), jj = j - cc * 2 * N;
-        const uint32_t g = bk_step[static_cast<size_t>(r) * CN + cc * N + (jj & (N - 1))];
-        gext[cc * gstride + pad(jj)] = whole_scan::key_word(jj < N ? g : 0u - g, s.key_limbs);
+        for (int a = 0; a < T; ++a)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sums[l][a][i] = 0;
+      for (int r = 0; r < R; ++r, ++q) {
+        // row q+1's words have landed and every warp is done with row q-1,
+        // whose plane buffer and raw row are free
+        cp_async_commit_wait();
+        __syncthreads();
+        if (q + 2 < rows) issue(q + 2);
+        mma_row<L, T>(sums, planes + (q & 1) * ps + lane_copy,
+                      reinterpret_cast<const uint32_t*>(dig + r * S * drow) + lane_dig, N,
+                      x0 >> 2, q + 1 < rows ? graw + ((q + 1) & 1) * N : nullptr,
+                      planes + ((q + 1) & 1) * ps);
       }
-      __syncthreads();
-      if (active)
-        whole_scan::contract_row<S>(delta, gext + c * gstride, dig + r * N, R * N, o0, N);
-      __syncthreads();
-    }
-    if (active) {
+      // recombine the limbs mod 2^32 and add this warp's outputs of column c
 #pragma unroll
-      for (int bb = 0; bb < S; ++bb)
+      for (int a = 0; a < T; ++a)
 #pragma unroll
-        for (int u = 0; u < kU; ++u) acc[bb * CN + c * N + o0 + u] += delta[bb][u];
+        for (int i = 0; i < 4; ++i) {
+          // c0, c1: row g (output o_t + 32a + 8 + g); c2, c3: row g + 8 (output
+          // o_t + 32a + g); samples 2t, 2t + 1
+          const int bb = 2 * t + (i & 1), o = o_t + 32 * a + g + (i < 2 ? 8 : 0);
+          uint32_t delta = 0u;
+#pragma unroll
+          for (int l = 0; l < L; ++l)
+            delta += static_cast<uint32_t>(sums[l][a][i]) << (8 * (kLimbs - L + l));
+          if (bb < S) acc[bb * CN + c * N + o] += delta;
+        }
     }
   }
   __syncthreads();
@@ -121,23 +238,22 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restric
     out[static_cast<size_t>(b0) * CN + idx] = acc[idx];
 }
 
-template <int S>
+template <int L, int T>
 int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const Shape& s,
            int* info, cudaStream_t stream) {
-  const int units = s.C * s.N / kU;
-  const int threads = units < 32 ? 32 : (units + 31) / 32 * 32;
+  const int threads = 32 * (s.N / (16 * T));
   const size_t smem = smem_bytes(s);
   if (smem > static_cast<size_t>(whole_scan::smem_optin()))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      blind_rotate_kernel<L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = S;
+  info[0] = s.spc;
   info[1] = threads;
   info[2] = static_cast<int>(smem);
-  info[3] = (s.B + S - 1) / S;
-  blind_rotate_kernel<S><<<info[3], threads, smem, stream>>>(
+  info[3] = (s.B + s.spc - 1) / s.spc;
+  blind_rotate_kernel<L, T><<<info[3], threads, smem, stream>>>(
       static_cast<const uint32_t*>(acc0), static_cast<const uint32_t*>(bk),
       static_cast<const int32_t*>(a_hat), static_cast<uint32_t*>(out), s);
   return static_cast<int>(cudaGetLastError());
@@ -147,30 +263,30 @@ int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const
 
 extern "C" {
 
-// acc0 u32 [B, C, N], bk u32 [n, R, C, N] (canonical rows p*levels + j),
-// a_hat int32 [n, B] -> out u32 [B, C, N], with `spc` samples per CTA.
-// info (host, 4 ints) receives the plan: samples per CTA, threads per CTA,
-// dynamic shared memory bytes and CTAs.  Returns cudaErrorInvalidValue
-// unless N is a power of two >= kU, C*N/kU <= kMaxThreads, B >= 1,
+// acc0 u32 [B, C, N], bk u32 [n, R, C, N] (canonical rows p*levels + j,
+// 16-byte aligned), a_hat int32 [n, B] -> out u32 [B, C, N], with `spc`
+// samples per CTA.  info (host, 4 ints) receives the plan: samples per CTA,
+// threads per CTA, dynamic shared memory bytes and CTAs.  Returns
+// cudaErrorInvalidValue unless N is a power of two with 64 <= N <= 512
+// (N/(16T) warps of T tiles), C >= 1, B >= 1, bk is 16-byte aligned,
 // key_limbs is 3 or 4, spc is 1, 2, 4 or 8 and its shared memory fits the
 // card's opt-in budget.
 int blind_rotate_fused(const void* acc0, const void* bk, const void* a_hat, void* out,
                        int n_steps, int B, int C, int N, int levels, int log_base,
                        int ignored_bits, int balanced, unsigned int balanced_offset,
                        int key_limbs, int spc, int* info, void* stream) {
-  if (N < kU || (N & (N - 1)) || C < 1 || C * N / kU > kMaxThreads || B < 1 ||
-      (key_limbs != 3 && key_limbs != 4))
+  if (N < 64 || N > 512 || (N & (N - 1)) || C < 1 || B < 1 ||
+      reinterpret_cast<uintptr_t>(bk) % 16 || (key_limbs != 3 && key_limbs != 4) ||
+      (spc != 1 && spc != 2 && spc != 4 && spc != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s{n_steps, B, C, N, levels, log_base, ignored_bits, balanced,
                 balanced_offset, key_limbs, spc};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (spc) {
-    case 1: return launch<1>(acc0, bk, a_hat, out, s, info, st);
-    case 2: return launch<2>(acc0, bk, a_hat, out, s, info, st);
-    case 4: return launch<4>(acc0, bk, a_hat, out, s, info, st);
-    case 8: return launch<8>(acc0, bk, a_hat, out, s, info, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (tiles_per_warp(N) == 4)
+    return key_limbs == 4 ? launch<4, 4>(acc0, bk, a_hat, out, s, info, st)
+                          : launch<3, 4>(acc0, bk, a_hat, out, s, info, st);
+  return key_limbs == 4 ? launch<4, 2>(acc0, bk, a_hat, out, s, info, st)
+                        : launch<3, 2>(acc0, bk, a_hat, out, s, info, st);
 }
 
 const char* tfhe_cuda_error_string(int err) {

@@ -8,7 +8,7 @@
 // digits are computed once per step into a scratch the columns share.
 //
 // What bounds it on the H100: integer multiply-adds, R*N*C*N per sample and
-// step (1.05e13 for B=1024 over 722 steps at default_128), as for Kernel B.
+// step (1.05e13 for B=1024 over 722 steps at default_128).
 // A CTA of Kernel B holds all C accumulator planes of its samples; here a
 // CTA holds one, so its shared memory goes to samples instead.
 //

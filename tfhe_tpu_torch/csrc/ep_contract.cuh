@@ -21,15 +21,10 @@
 // Design: the sums are int8 mma.sync m16n8k32 (s8 x s8 -> s32) with the
 // samples as M, the output coefficients o as N and the input coefficients
 // m as K.  The TPU kernels build each row's [N, N] circulant; here it is
-// never built.  Let P_l[x] = limb_l(ext[(-x) mod 2N]); then the circulant's
-// entry (m, o) is P_l[(m - o) mod 2N], and an mma B-fragment register, which
-// holds k = 4*(lane%4) + j (j = 0..3) at n = lane/4, is the four consecutive
-// bytes P_l[x .. x+3], x = (m0 + 4*(lane%4) - o) mod 2N.  x mod 4 follows o
-// mod 4 alone, so per staged row (r, c) the CTA keeps four byte-shifted
-// copies of each limb plane P_l as 32-bit words (copy s, word w holds
-// P_l[4w + s .. 4w + s + 3], circularly): every B register is one aligned
-// 32-bit shared load.  The copies lie 8 banks apart, so the ~20 distinct
-// words a warp's load touches fall in distinct banks.  A registers are 4
+// never built: an mma B-fragment register, which holds k = 4*(lane%4) + j
+// (j = 0..3) at n = lane/4, is the four consecutive bytes P_l[x .. x+3],
+// x = (m0 + 4*(lane%4) - o) mod 2N, one aligned 32-bit load from the
+// byte-shifted limb planes of limb_planes.cuh.  A registers are 4
 // consecutive digits of one digit row: one 32-bit load from the CTA's digit
 // rows in shared memory (rows padded by 16 bytes against bank conflicts;
 // rows past B are zero and are never stored).
@@ -58,11 +53,19 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "limb_planes.cuh"
+
 namespace ep {
 
 namespace cg = cooperative_groups;
+using limb_planes::build_planes;
+using limb_planes::copy_words;
+using limb_planes::cp_async16;
+using limb_planes::cp_async_commit_wait;
+using limb_planes::digit_row_bytes;
+using limb_planes::kLimbs;
+using limb_planes::mma_s8;
 
-constexpr int kLimbs = 4;
 constexpr int kMaxSplit = 8;  // the portable cluster size
 constexpr int kNT = 2;        // n-tiles of 8 outputs per warp
 
@@ -82,11 +85,6 @@ struct Plan {
   int nbuf;      // digit buffers: 2 (prefetch under the mmas) or 1
 };
 
-// Words of one byte-shifted copy of a limb plane: N/2 words, padded so that
-// the four copies lie 8 banks apart.
-__host__ __device__ inline int copy_words(int N) { return N / 2 + 8; }
-// Bytes of one staged digit row (padded against bank conflicts).
-__host__ __device__ inline int digit_row_bytes(int N) { return N + 16; }
 // Ints of one row of the partial tile.
 __host__ __device__ inline int partial_row(int warps) { return 16 * warps + 8; }
 
@@ -98,30 +96,6 @@ __host__ inline size_t smem_bytes(const Plan& p) {
   const size_t stage = planes + digits + 4ull * p.N;
   const size_t partial = 4ull * kLimbs * p.bm * partial_row(p.warps);
   return stage > partial ? stage : partial;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit_wait() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Start the copies of row r: the CTA's bm digit rows into `dig` and the key
@@ -142,37 +116,6 @@ __device__ __forceinline__ void issue_row(const int8_t* __restrict__ digits,
   const uint32_t* g = rows + (static_cast<size_t>(r) * p.C + c) * N;
   for (int ch = threadIdx.x; ch < N / 4; ch += blockDim.x)
     cp_async16(graw + ch * 4, g + ch * 4, true);
-}
-
-// The 16 plane copies from the raw key row: copy (l, s), word w holds bytes
-// P_l[4w + s + j], j = 0..3, with P_l[x] = limb_l(ext[(-x) mod 2N]).  A
-// thread builds word w of all 16 copies from the 7 limb words
-// ext[-(4w + k)], k = 0..6.
-__device__ __forceinline__ void build_planes(const uint32_t* graw, uint32_t* planes, int N) {
-  const int cw = copy_words(N), mask2 = 2 * N - 1;
-  for (int w = threadIdx.x; w < N / 2; w += blockDim.x) {
-    uint32_t e[7];
-#pragma unroll
-    for (int k = 0; k < 7; ++k) {
-      const int i = (-(4 * w + k)) & mask2;
-      const uint32_t v = i < N ? graw[i] : 0u - graw[i - N];
-      // balanced limbs: byte l of (v + 0x80808080) minus 128 == that byte ^ 0x80
-      e[k] = (v + 0x80808080u) ^ 0x80808080u;
-    }
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      // transpose bytes: limb l of e[s + j] -> byte j of limb word l
-      const uint32_t lo01 = __byte_perm(e[s], e[s + 1], 0x5140);
-      const uint32_t lo23 = __byte_perm(e[s + 2], e[s + 3], 0x5140);
-      const uint32_t hi01 = __byte_perm(e[s], e[s + 1], 0x7362);
-      const uint32_t hi23 = __byte_perm(e[s + 2], e[s + 3], 0x7362);
-      uint32_t* dst = planes + s * cw + w;
-      dst[0 * 4 * cw] = __byte_perm(lo01, lo23, 0x5410);
-      dst[1 * 4 * cw] = __byte_perm(lo01, lo23, 0x7632);
-      dst[2 * 4 * cw] = __byte_perm(hi01, hi23, 0x5410);
-      dst[3 * 4 * cw] = __byte_perm(hi01, hi23, 0x7632);
-    }
-  }
 }
 
 // One staged row's mmas for this warp: all N/32 K steps.

@@ -7,7 +7,7 @@
 // remaining columns contract, staged in a parity double buffer.
 //
 // What bounds it on the H100: integer multiply-adds, R*N*C*N per sample and
-// step (1.05e13 for B=1024 over 722 steps at default_128), as for Kernel B;
+// step (1.05e13 for B=1024 over 722 steps at default_128);
 // the key streams once per step per CTA from L2 and the accumulators never
 // leave the SM.  The digit pipeline (rotation and decomposition, ~0.5% of
 // the operations) is what the TPU kernel hid under its matrix unit; here it

@@ -10,9 +10,9 @@
 // is final.
 //
 // What bounds it on the H100: integer multiply-adds, R*N*C*N per sample and
-// step (1.05e13 for B=1024 over 722 steps at default_128), as for Kernel B.
-// What Kernel B spends besides: two CTA barriers per digit row around the
-// staging of each key row.
+// step (1.05e13 for B=1024 over 722 steps at default_128).
+// What a scan that stages one key row at a time spends besides: CTA
+// barriers around the staging of each row.
 //
 // Design: column-outer.  For each step s and output column c the CTA copies
 // the column's whole key block (R rows of N u32, 36 KB at default_128) from

@@ -2,9 +2,10 @@
 ``tfhe_tpu/ops/pallas/blind_rotate_kernel.py``, each with its own
 hand-written kernel and plain twin.
 
-  * ``blind_rotate_fused`` — Kernel B (``csrc/blind_rotate_kernel.cu``):
-    both digit conventions, ``key_limbs`` 4 (exact) or 3 (impls 'fused',
-    'fusedb', 'fused3', 'fusedb3');
+  * ``blind_rotate_fused`` — Kernel B (``csrc/blind_rotate_kernel.cu``, int8
+    tensor cores on the limb planes of ``csrc/limb_planes.cuh``): both digit
+    conventions, ``key_limbs`` 4 (exact) or 3 (impls 'fused', 'fusedb',
+    'fused3', 'fusedb3');
   * ``blind_rotate_fused_pipe`` — Kernel E (``csrc/pipe_kernel.cu``):
     carry-chain digits, ``key_limbs`` 4 or 3 ('fusedp', 'fusedp3');
   * ``blind_rotate_fused_wide_pipe`` — Kernel F (``csrc/wide_pipe_kernel.cu``):
@@ -13,7 +14,9 @@ hand-written kernel and plain twin.
     carry-chain digits, ``key_limbs`` 4 or 3 ('fusedc', 'fusedc3').
 
 All four compute the same step (``csrc/whole_scan.cuh``), so at one digit
-convention and key width they agree bit for bit; they differ in schedule.
+convention and key width they agree bit for bit; they differ in schedule
+(and Kernel B in arithmetic: int8 limb sums recombined mod 2^32, where E, F
+and G multiply-add in u32).
 ``key_limbs=3`` drops the low byte of each sign-twisted key word, as the TPU
 kernels drop their lowest int8 limb plane: an approximate mode that spends
 part of the gate's noise margin (PERF.md measures how much at default_128).
@@ -78,7 +81,11 @@ def smem_bytes(kind: str, params: TfheParams, spc: int) -> int:
     r = c * levels
     row = 4 * _pad(2 * n)  # one staged row w(+-g)
     if kind == "fused":
-        return 4 * spc * c * n + c * row + spc * r * n + 4 * spc
+        # accumulators, two sets of 16 byte-shifted limb-plane copies
+        # (limb_planes.cuh:copy_words), two raw key rows, the digit rows
+        # padded by 16 bytes, the exponents
+        return (4 * spc * c * n + 2 * 4 * 16 * (n // 2 + 8) + 2 * 4 * n
+                + r * spc * (n + 16) + 4 * spc)
     if kind == "pipe":
         return 4 * spc * c * n + 2 * spc * r * n + row + 4 * 2 * spc
     if kind == "wide_pipe":
@@ -147,8 +154,9 @@ def _launch(kernel: CudaKernel, kind: str, params: TfheParams, acc0: torch.Tenso
     check_cuda_operand("acc0", acc0, torch.int32, (b, k1, n), device)
     check_cuda_operand("bk_u32", bk_u32, torch.int32, (steps, k1 * dp.levels, k1, n), device)
     check_cuda_operand("a_hat", a_hat, torch.int32, (steps, b), device)
-    if kind == "wide_pipe" and bk_u32.data_ptr() % 16:
-        raise ValueError("bk_u32 must be 16-byte aligned (Kernel F copies it in 16-byte pieces)")
+    if kind in ("fused", "wide_pipe") and bk_u32.data_ptr() % 16:
+        raise ValueError(f"bk_u32 must be 16-byte aligned ({kernel.symbol} copies it in 16-byte "
+                         "pieces)")
     budget = smem_budget(device)
     spc = pick_samples_per_cta(lambda s: smem_bytes(kind, params, s), budget)
     if spc is None:
