@@ -11,7 +11,7 @@ failure, so the script exits nonzero and prints no result line.
   0. require CUDA; print the card, its power limit, torch and CUDA versions;
   1. build the kernels, all nvcc processes at once (one per source, eight),
      with the build seconds and ptxas' resource report, and count the IMMA
-     (integer tensor-core) instructions of Kernels A, H and B with
+     (integer tensor-core) instructions of Kernels A, H, B, F and G with
      ``cuobjdump -sass``: there must be some in each;
   2. hold each kernel against its plain PyTorch twin (``torch.equal``) at
      nano, test_insecure and a 16-step slice of the default_128 key (Kernel C
@@ -20,8 +20,8 @@ failure, so the script exits nonzero and prints no result line.
      its four modes (fused, fusedb, fused3, fusedb3) at B = 1, 3, 7, 8, 9,
      64 and 65, on random keys, keys whose every byte is 0x80 and keys whose
      every low byte is 0x80 (the truncated key's hard case); Kernel B at
-     key_limbs=3 and Kernels E, F and G in all their modes, also on a key
-     whose every low byte is 0x80; Kernel H
+     key_limbs=3 and Kernels E, F and G in all their modes, also on keys
+     whose every low byte, or every byte, is 0x80; Kernel H
      at B=1, 7, 64, on a key whose every byte is 0x80, and on one GGSW of
      the default_128 key at B=64 and 1024; Kernels A and H on full-range
      int8 digits at B=1, 7, 17, 64, 65, 1024, at the bmmp scan's 3R rows,
@@ -54,10 +54,10 @@ failure, so the script exits nonzero and prints no result line.
      right, and each path must have launched its kernels;
   4. time 'fusedb' at B=1024 with CUDA events, with the SM clock sampled by
      nvidia-smi meanwhile (``scripts/measure_torch.py:sampled_clocks``), then
-     Kernel B against its twin at the main path's shape, then Kernel B alone
-     over the whole key at B = 8, 64, 256, 1024 and 2048 ('fusedb' and
-     'fusedb3'), each with its plan, its SM clock, its twin and its bound,
-     then the
+     Kernel B against its twin at the main path's shape, then Kernels B
+     ('fusedb', 'fusedb3'), F ('fusedwb') and G ('fusedc') alone over the
+     whole key at B = 8, 64, 256, 1024 and 2048, in turns, each with its
+     plan, its waves, its SM clock, its twin and its bound, then the
      small-batch gates, the 8-bit add, Kernel C against its twin at B=1,
      B=8 (V=1) and B=4 (V=3), then
      the 'nttf' gate at B=1024 with the SM clock sampled, Kernel D against
@@ -176,16 +176,6 @@ def phase0() -> str:
     return card
 
 
-def imma_count(lib: Path) -> int:
-    """The IMMA (integer tensor-core mma) instructions in a built library,
-    from ``cuobjdump -sass`` of the toolkit that built it."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib)],
-                          capture_output=True, text=True, timeout=120, check=True).stdout
-    return sum("IMMA" in ln for ln in sass.splitlines())
-
-
 def phase1(kernels, tensor_core_kernels) -> None:
     log("phase 1: build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
@@ -196,6 +186,8 @@ def phase1(kernels, tensor_core_kernels) -> None:
         report = [ln.strip() for ln in k.ptxas_report.splitlines()
                   if "registers" in ln or "spill" in ln]
         log(f"  {k.source}: " + " | ".join(report))
+    from tfhe_tpu_torch.ops.cuda._build import imma_count
+
     for k in tensor_core_kernels:
         count = imma_count(k.path)
         log(f"  {k.source}: {count} IMMA instructions (cuobjdump -sass)")
@@ -476,26 +468,48 @@ def time_contractions(epk, sk, params, rng, dev, card, graph_ms, bk_to_matmul_w)
     return res
 
 
-def time_kernel_b(brk, sk, params, rng, dev, card, sampled_clocks) -> dict:
-    """Phase 4: Kernel B alone over the whole key (722 steps) at each of
-    KERNEL_B_BATCHES, 'fusedb' and 'fusedb3', on random accumulators and
-    exponents: its time (mean of 2 back to back after a warm-up, CUDA
-    events) with the SM clock sampled meanwhile, its plan, its twin's time
-    and max_abs_err, and its bound (int8 multiply-adds of the kept limbs
-    over the int8 peak, or the bytes)."""
+#: the tensor-core whole-scan kernels phase 4 times alone over KERNEL_B_BATCHES:
+#: impl -> (kernel, wrapper name, options, key limbs)
+ALONE = {"fusedb": ("B", "blind_rotate_fused", {"balanced": True}, 4),
+         "fusedb3": ("B", "blind_rotate_fused", {"balanced": True, "key_limbs": 3}, 3),
+         "fusedwb": ("F", "blind_rotate_fused_wide_pipe", {"balanced": True}, 4),
+         "fusedc": ("G", "blind_rotate_fused_cols", {}, 4)}
+
+
+def waves(plan: dict, c: int, dev) -> int:
+    """The waves a launch plan runs in: its clusters of c CTAs over the
+    clusters the card holds at once (Kernel G), or its CTAs over the SMs
+    times the CTAs whose shared memory one SM holds (an SM has 1 KB more
+    than a block may opt in to, and each resident block reserves 1 KB)."""
+    if "max_active_clusters" in plan:
+        return -(-plan["ctas"] // c // plan["max_active_clusters"])
+    props = torch.cuda.get_device_properties(dev)
+    per_sm = (props.shared_memory_per_block_optin + 1024) // (plan["smem_bytes"] + 1024)
+    return -(-plan["ctas"] // (props.multi_processor_count * per_sm))
+
+
+def time_alone(brk, sk, params, rng, dev, card, sampled_clocks) -> dict:
+    """Phase 4: Kernels B ('fusedb', 'fusedb3'), F ('fusedwb') and G
+    ('fusedc') alone over the whole key (722 steps) at each of
+    KERNEL_B_BATCHES, in turns on the same random accumulators and
+    exponents: each one's time (mean of 2 back to back after a warm-up,
+    CUDA events) with the SM clock sampled meanwhile, its plan and waves,
+    its twin's time and max_abs_err, and its bound (int8 multiply-adds of
+    the kept limbs over the int8 peak, or the bytes)."""
     k1, n, steps = params.k + 1, params.degree, params.n
     r = k1 * params.pbs_decomposer.levels
     res = {}  # (impl, B) -> measurements
     for b in KERNEL_B_BATCHES:
         acc0 = torch.from_numpy(rnd_u32(rng, (b, k1, n)).view(np.int32)).to(dev)
         a_hat = torch.from_numpy(rng.integers(0, 2 * n, size=(steps, b), dtype=np.int32)).to(dev)
-        for impl, key_limbs in (("fusedb", 4), ("fusedb3", 3)):
+        for impl, (kernel, fn, options, key_limbs) in ALONE.items():
             def rotate(twin=False):
-                fn = brk.blind_rotate_fused_ref if twin else brk.blind_rotate_fused
-                return fn(params, acc0, sk.bk_u32, a_hat, True, key_limbs)
+                return getattr(brk, fn + "_ref" if twin else fn)(params, acc0, sk.bk_u32, a_hat,
+                                                                **options)
             ms, clocked = sampled_clocks(rotate, 2)
             mhz = sorted(c for c, _ in clocked) or [float("nan")]
-            plan = dict(brk.last_plan["blind_rotate_fused"])
+            plan = dict(brk.last_plan[fn])
+            plan["waves"] = waves(plan, k1, dev)
             got = rotate()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -507,13 +521,13 @@ def time_kernel_b(brk, sk, params, rng, dev, card, sampled_clocks) -> dict:
                                        2 * nbytes(acc0) + nbytes(a_hat) + nbytes(sk.bk_u32))
             res[impl, b] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
                                 bound_by=bound_by, plan=plan, sm_mhz=[mhz[0], mhz[-1]])
-            log(f"  Kernel B {impl:7s} [B={b}, n={steps}]: kernel {ms:.3f} ms (mean of 2), "
+            log(f"  Kernel {kernel} {impl:7s} [B={b}, n={steps}]: kernel {ms:.3f} ms (mean of 2), "
                 f"{b / (ms / 1e3):.1f} blind rotations/s; SM clock {len(clocked)} samples "
                 f"{mhz[0]}-{mhz[-1]} MHz; bound {bound_ms:.3f} ms by {bound_by} (share "
                 f"{bound_ms / ms:.4f}); plain {plain_ms:.1f} ms; max_abs_err {err}; plan {plan}; "
                 f"card: {card}")
     require(all(v["max_abs_err"] == 0 for v in res.values()),
-            "Kernel B disagrees with its twin at a phase-4 batch")
+            "a tensor-core whole-scan kernel disagrees with its twin at a phase-4 batch")
     return res
 
 
@@ -534,13 +548,14 @@ WHOLE_SCAN = {
 def phase2_whole_scan(brk, get_params, to_torch_u32, params, sk, dev) -> None:
     """Kernel B at key_limbs=3 and Kernels E, F and G against their twins in
     every mode: random keys at nano and test_insecure, the same with every
-    low byte 0x80 (the truncated key's hard case), and a 16-step slice of
-    the default_128 key."""
+    low byte 0x80 (the truncated key's hard case) and with every byte 0x80
+    (the limb -128, which the tensor-core kernels B, F and G must not
+    negate), and a 16-step slice of the default_128 key."""
     rng = np.random.default_rng(7)
     cases = [(name, b, "random") for name, bs in (("nano", (1, 3, 8)),
                                                    ("test_insecure", (1, 7, 64))) for b in bs]
-    cases += [("nano", 3, "low-0x80"), ("test_insecure", 7, "low-0x80"),
-              (params.name, 32, "slice")]
+    cases += [("nano", 3, "low-0x80"), ("test_insecure", 7, "low-0x80"), ("nano", 9, "0x80"),
+              ("test_insecure", 9, "0x80"), (params.name, 32, "slice")]
     for name, b, kind in cases:
         p = get_params(name)
         k1, n = p.glwe_dimension + 1, p.degree
@@ -550,6 +565,8 @@ def phase2_whole_scan(brk, get_params, to_torch_u32, params, sk, dev) -> None:
             words = rnd_u32(rng, (p.lwe_dimension, k1 * p.pbs_decomposer.levels, k1, n))
             if kind == "low-0x80":
                 words = (words & np.uint32(0xFFFFFF00)) | np.uint32(0x80)
+            elif kind == "0x80":
+                words[:] = 0x80808080
             bk = to_torch_u32(words, dev)
         steps = bk.shape[0]
         acc0 = to_torch_u32(rnd_u32(rng, (b, k1, n)), dev)
@@ -612,7 +629,8 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels = (epk.KERNEL, brk.KERNEL, latk.KERNEL, nttk.KERNEL, brk.PIPE_KERNEL,
                brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL, epk.BATCH_KERNEL)
-    phase1(kernels, (epk.KERNEL, epk.BATCH_KERNEL, brk.KERNEL))
+    phase1(kernels, (epk.KERNEL, epk.BATCH_KERNEL, brk.KERNEL, brk.WIDE_PIPE_KERNEL,
+                     brk.COLS_KERNEL))
     t0 = time.perf_counter()
     budget = smem_budget(dev)
     budget_us = (time.perf_counter() - t0) * 1e6
@@ -801,9 +819,9 @@ def main() -> int:
     log(f"  blind_rotate_fused fusedb [B={MAIN_B}, n={params.n}]: kernel {bk_ms:.2f} ms, "
         f"plain {bk_plain_ms:.2f} ms, max_abs_err {bk_err}; plan {bk_plan}; card: {card}")
     require(bk_err == 0, "Kernel B disagrees with its twin at the main path's shape")
-    log(f"phase 4: Kernel B alone at B = {', '.join(map(str, KERNEL_B_BATCHES))}, fusedb and "
-        f"fusedb3 (CUDA events)")
-    kb = time_kernel_b(brk, sk, params, rng, dev, card, sampled_clocks)
+    log(f"phase 4: Kernels B (fusedb, fusedb3), F (fusedwb) and G (fusedc) alone at B = "
+        f"{', '.join(map(str, KERNEL_B_BATCHES))} (CUDA events)")
+    alone = time_alone(brk, sk, params, rng, dev, card, sampled_clocks)
 
     log("phase 4: small-batch gates (CUDA events; mean of 3 after one warm-up, "
         "2 for fusedb and bmmp)")
@@ -881,6 +899,7 @@ def main() -> int:
         ms, clocked = sampled_clocks(lambda: rotate(params, acc0, sk.bk_u32, a_hat, **options), 2)
         mhz = sorted(c for c, _ in clocked) or [float("nan")]
         plan = dict(brk.last_plan[fn])
+        plan["waves"] = waves(plan, params.k + 1, dev)
         got = rotate(params, acc0, sk.bk_u32, a_hat, **options)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -932,7 +951,8 @@ def main() -> int:
          "source": "tfhe_tpu_torch/csrc/blind_rotate_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/blind_rotate_kernel.py:862",
          "launches": launches["blind_rotate_fused"],
-         "max_abs_err": max([bk_err] + [v["max_abs_err"] for v in kb.values()]),
+         "max_abs_err": max([bk_err] + [v["max_abs_err"] for (impl, _), v in alone.items()
+                                        if ALONE[impl][0] == "B"]),
          "ms": bk_ms, "plain_ms": bk_plain_ms, "bound_ms": bk_bound[0],
          "bound_by": bk_bound[1], "library_ms": None, "plan": bk_plan},
         {"name": "blind_rotate_latency", "route": "cuda",
@@ -951,13 +971,15 @@ def main() -> int:
     ]}
     # the whole-scan variants: Kernel B at key_limbs=3 (its launches on the
     # variants path are fused3's and fusedb3's), Kernels E, F and G
-    for name, symbol, source, line in (
-            ("blind_rotate_fused_k3", "blind_rotate_fused", "blind_rotate_kernel", 862),
-            ("blind_rotate_fused_pipe", "blind_rotate_fused_pipe", "pipe_kernel", 793),
+    for name, symbol, source, line, kernel in (
+            ("blind_rotate_fused_k3", "blind_rotate_fused", "blind_rotate_kernel", 862, None),
+            ("blind_rotate_fused_pipe", "blind_rotate_fused_pipe", "pipe_kernel", 793, None),
             ("blind_rotate_fused_wide_pipe", "blind_rotate_fused_wide_pipe",
-             "wide_pipe_kernel", 723),
-            ("blind_rotate_fused_cols", "blind_rotate_fused_cols", "cols_kernel", 664)):
+             "wide_pipe_kernel", 723, "F"),
+            ("blind_rotate_fused_cols", "blind_rotate_fused_cols", "cols_kernel", 664, "G")):
         ms, plain_ms, err, key_limbs, plan = ws[name]
+        err = max([err] + [v["max_abs_err"] for (impl, _), v in alone.items()
+                           if ALONE[impl][0] == kernel])
         b = bound(r * n * k1 * n * key_limbs * steps * MAIN_B, acc_bytes + nbytes(sk.bk_u32))
         record["kernels"].append({
             "name": name, "route": "cuda", "source": f"tfhe_tpu_torch/csrc/{source}.cu",

@@ -21,9 +21,11 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
   * Kernels E, F and G (``blind_rotate_fused_pipe``, ``_wide_pipe``,
     ``_cols``) alone at B = 8 .. 2048 and Kernel B at key_limbs=3 at
     B=1024, with their launch plans;
-  * where Kernel B's time goes at B=1024: the kernel built again with its
-    plane build, its row barrier or its digit phase cut out of a copy of
-    its source (``KERNEL_B_CUTS``), timed in turns with the whole kernel;
+  * where the time of Kernels B, F and G goes at B=1024: each kernel built
+    again with its plane build, its row barrier, its digit phase, (F) the
+    digit builds it runs under the next column's mmas or (G) its gather cut
+    out of a copy of its sources (``CUTS``), timed in turns with the whole
+    kernel;
   * one NAND gate per impl: fusedb, fused and nttf at B=1024, auto (Kernel A)
     at B=64 and B=1024, conv (Kernel H) and matmul (plain) at B=64, the
     small-batch impls fusedl, bmmpl, bmmp and fusedb at B <= 64, and nttf,
@@ -33,7 +35,8 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
     ``torch.profiler``, with the kernels that took the most of it.
 
 The contraction kernels A and H are timed beside their library call by
-``chip_smoke.py`` phase 4, with ``graph_ms`` below.  Every round's milliseconds are kept unrounded.  The results go to
+``chip_smoke.py`` phase 4, with ``graph_ms`` below.  Every round's
+milliseconds are kept unrounded.  The results go to
 ``chiprun_out/measure_torch.json`` and, as one JSON line, to the end of the
 standard output.  It imports neither JAX nor ``tfhe_tpu``.
 """
@@ -65,17 +68,36 @@ SCHEDULES = (("kernelE_fusedp", "blind_rotate_fused_pipe", {}),
              ("kernelG_fusedc", "blind_rotate_fused_cols", {}))
 PROFILED = (("fusedb", 1024), ("fusedb3", 1024), ("nttf", 1024), ("auto", 64), ("conv", 64),
             ("bmmp", 64), ("fusedl", 1))
-#: Kernel B's phases, cut out of a copy of csrc/blind_rotate_kernel.cu to
-#: time what each costs: name -> (text, replacement) pairs, each text found
-#: once.  A cut kernel's results are wrong; only its time is read.
-_NO_BUILD = ("if (j0 == 0 && graw_next != nullptr)", "if (false)")
+#: The phases of the tensor-core whole-scan kernels B, F and G, cut out of
+#: copies of their sources (the kernel's .cu and the shared csrc/*.cuh) to
+#: time what each costs: kernel -> cut name -> (text, replacement) pairs,
+#: each text found once in those sources.  A cut kernel's results are wrong;
+#: only its time is read.
+_NO_BUILD = ("if (j0 == 0 && graw_next != nullptr)", "if (false)")  # mma_row.cuh
 _NO_BARRIER = ("        cp_async_commit_wait();\n        __syncthreads();\n",
-               "        cp_async_commit_wait();\n")
-_NO_DIGITS = ("      whole_scan::rotate_decompose(", "      if (idx < 0) whole_scan::rotate_decompose(")
-KERNEL_B_CUTS = {"no plane build": (_NO_BUILD,),
-                 "no plane build, no row barrier": (_NO_BUILD, _NO_BARRIER),
-                 "no digit phase": (_NO_DIGITS,),
-                 "mma loop alone": (_NO_BUILD, _NO_BARRIER, _NO_DIGITS)}
+               "        cp_async_commit_wait();\n")  # B's and F's row barrier
+_NO_BARRIER_G = ("      cp_async_commit_wait();\n      __syncthreads();\n",
+                 "      cp_async_commit_wait();\n")
+_NO_DIGITS = ("      whole_scan::rotate_decompose(",
+              "      if (idx < 0) whole_scan::rotate_decompose(")
+_NO_PIPELINED_DIGITS = ("planes + ((q + 1) & 1) * ps, next_digits);",
+                        "planes + ((q + 1) & 1) * ps);")  # F's in-row builds
+_NO_GATHER = ("      reinterpret_cast<uint4*>(dig + pp * blk)[v] =",
+              "      if (idx < 0) reinterpret_cast<uint4*>(dig + pp * blk)[v] =")
+CUTS = {
+    "B": {"no plane build": (_NO_BUILD,),
+          "no plane build, no row barrier": (_NO_BUILD, _NO_BARRIER),
+          "no digit phase": (_NO_DIGITS,),
+          "mma loop alone": (_NO_BUILD, _NO_BARRIER, _NO_DIGITS)},
+    "F": {"no plane build": (_NO_BUILD,),
+          "no digit phase": (_NO_DIGITS,),
+          "no pipelined digits": (_NO_PIPELINED_DIGITS,),
+          "mma loop alone": (_NO_BUILD, _NO_BARRIER, _NO_DIGITS)},
+    "G": {"no plane build": (_NO_BUILD,),
+          "no digit phase": (_NO_DIGITS,),
+          "no gather": (_NO_GATHER,),
+          "mma loop alone": (_NO_BUILD, _NO_BARRIER_G, _NO_DIGITS, _NO_GATHER)},
+}
 SUBPARTITIONS_PER_SM = 4  # each with its own tensor core
 
 
@@ -196,51 +218,62 @@ def dp4a_per_sample_step(p) -> int:
     return len(ntt.PRIMES) * per_prime // 4
 
 
-def kernel_b_cuts(brk, p, acc0, bk, a_hat) -> dict:
-    """Kernel B's ms with each of KERNEL_B_CUTS (copies built into
-    build/tfhe_tpu_torch/kernel_b_cuts/, all nvcc processes at once), in
-    turns with the whole kernel (whole, cuts, whole), for 'fusedb' and
-    'fusedb3', 2 rounds each."""
+def kernel_cuts(brk, p, acc0, bk, a_hat) -> dict:
+    """The ms of Kernels B, F and G with each of their CUTS (copies built
+    into build/tfhe_tpu_torch/kernel_cuts/, all nvcc processes at once), in
+    turns with the whole kernel (whole, cuts, whole), 2 rounds each: Kernel
+    B at 'fusedb' and 'fusedb3', F at 'fusedwb', G at 'fusedc'."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
     from tfhe_tpu_torch.ops.cuda import _build
     from tfhe_tpu_torch.ops.decomposer import balanced_offset
 
-    src = (_build.CSRC / "blind_rotate_kernel.cu").read_text()
-    out = _build.BUILD_DIR / "kernel_b_cuts"
-    out.mkdir(parents=True, exist_ok=True)
+    whole = {"B": brk.KERNEL, "F": brk.WIDE_PIPE_KERNEL, "G": brk.COLS_KERNEL}
+    out = _build.BUILD_DIR / "kernel_cuts"
 
-    def build(name):
-        text = src
-        for old, new in KERNEL_B_CUTS[name]:
-            if text.count(old) != 1:
-                raise RuntimeError(f"cut {name!r}: {old!r} is not in the kernel source once")
-            text = text.replace(old, new)
-        cu = out / (name.replace(" ", "_").replace(",", "") + ".cu")
-        cu.write_text(text)
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-                               str(cu.with_suffix(".so")), str(cu)], capture_output=True, text=True)
+    def build(job):
+        tag, name = job
+        kernel = whole[tag]
+        srcs = {f.name: f.read_text() for f in [_build.CSRC / f"{kernel.source}.cu",
+                                                *sorted(_build.CSRC.glob("*.cuh"))]}
+        for old, new in CUTS[tag][name]:
+            where = [f for f, text in srcs.items() if old in text]
+            if len(where) != 1 or srcs[where[0]].count(old) != 1:
+                raise RuntimeError(f"cut {tag} {name!r}: {old!r} is not in the sources once")
+            srcs[where[0]] = srcs[where[0]].replace(old, new)
+        cut_dir = out / f"{tag}_{name.replace(' ', '_').replace(',', '')}"
+        cut_dir.mkdir(parents=True, exist_ok=True)
+        for f, text in srcs.items():
+            (cut_dir / f).write_text(text)
+        lib = cut_dir / f"lib{kernel.source}.so"
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                               str(cut_dir / f"{kernel.source}.cu")],
+                              capture_output=True, text=True)
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the cut {name!r}:\n{proc.stderr}")
-        kernel = _build.CudaKernel(brk.KERNEL.source, brk.KERNEL.symbol, brk.KERNEL.argtypes)
-        kernel._lib = ctypes.CDLL(str(cu.with_suffix(".so")))
-        kernel._fn = getattr(kernel._lib, kernel.symbol)
-        kernel._fn.argtypes, kernel._fn.restype = kernel.argtypes, ctypes.c_int
-        kernel._lib.tfhe_cuda_error_string.argtypes = [ctypes.c_int]
-        kernel._lib.tfhe_cuda_error_string.restype = ctypes.c_char_p
-        return name, kernel
+            raise RuntimeError(f"nvcc failed on the cut {tag} {name!r}:\n{proc.stderr}")
+        cut = _build.CudaKernel(kernel.source, kernel.symbol, kernel.argtypes)
+        cut._lib = ctypes.CDLL(str(lib))
+        cut._fn = getattr(cut._lib, cut.symbol)
+        cut._fn.argtypes, cut._fn.restype = cut.argtypes, ctypes.c_int
+        cut._lib.tfhe_cuda_error_string.argtypes = [ctypes.c_int]
+        cut._lib.tfhe_cuda_error_string.restype = ctypes.c_char_p
+        return job, cut
 
-    with ThreadPoolExecutor(len(KERNEL_B_CUTS)) as pool:
-        kernels = dict(pool.map(build, KERNEL_B_CUTS))
-    kernels = {"whole": brk.KERNEL, **kernels}
+    jobs = [(tag, name) for tag, cuts in CUTS.items() for name in cuts]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(pool.map(build, jobs))
+    offset = balanced_offset(p.pbs_decomposer)
+    runs = (("B", "fusedb", "fused", (1, offset, 4)), ("B", "fusedb3", "fused", (1, offset, 3)),
+            ("F", "fusedwb", "wide_pipe", (1, offset)), ("G", "fusedc", "cols", (4,)))
     res = {}
-    for mode, key_limbs in (("fusedb", 4), ("fusedb3", 3)):
+    for tag, mode, kind, args in runs:
+        kernels = {"whole": whole[tag], **{name: built[tag, name] for name in CUTS[tag]}}
         for name in [*kernels, "whole"]:
-            t = event_rounds(lambda: brk._launch(kernels[name], "fused", p, acc0, bk, a_hat, 1,
-                                                 balanced_offset(p.pbs_decomposer), key_limbs), 2)
+            t = event_rounds(lambda: brk._launch(kernels[name], kind, p, acc0, bk, a_hat, *args),
+                             2)
             res.setdefault(f"{mode} {name}", []).extend(t)
-            log(f"Kernel B {mode} B=1024, {name}: ms {t}")
+            log(f"Kernel {tag} {mode} B=1024, {name}: ms {t}")
     return res
 
 
@@ -391,7 +424,7 @@ def main() -> int:
     t = event_rounds(lambda: brk.blind_rotate_fused(p, acc0, sk.bk_u32, a_hat, True, 3), 3)
     res["kernelB_fusedb3_B1024_ms"] = t
     log(f"Kernel B fusedb3 (key_limbs=3) B=1024: ms {t}")
-    res["kernelB_B1024_cuts_ms"] = kernel_b_cuts(brk, p, acc0, sk.bk_u32, a_hat)
+    res["kernels_BFG_B1024_cuts_ms"] = kernel_cuts(brk, p, acc0, sk.bk_u32, a_hat)
 
     for impl, b in GATES:
         t = event_rounds(lambda: tfhe.gates.nand(sk, ca[:b], cb[:b], impl=impl),

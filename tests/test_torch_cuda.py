@@ -523,8 +523,8 @@ def test_whole_scan_kernels_refuse_shapes_over_the_budget_on_card(cuda_device, m
     """A shape whose one sample passes the card's shared-memory budget raises
     ValueError before any launch, and the twin does not stand in: at
     test_insecure against a budget one byte short of one sample, and for
-    Kernel F also at large_2048, where its two key blocks alone pass the
-    H100's real budget."""
+    Kernel F also at large_2048, which it refuses by its degree (N from 64
+    to 512) before it sizes anything."""
     fn, _, options, kernel = WHOLE_SCAN[impl]
     for name in ("blind_rotate_fused_ref", "blind_rotate_fused_pipe_ref",
                  "blind_rotate_fused_wide_pipe_ref", "blind_rotate_fused_cols_ref"):
@@ -539,7 +539,7 @@ def test_whole_scan_kernels_refuse_shapes_over_the_budget_on_card(cuda_device, m
             fn(p, acc0, bk, a_hat, **options)
     if impl == "fusedw":
         big = get_params("large_2048")
-        with pytest.raises(ValueError, match="shared memory"):
+        with pytest.raises(ValueError, match="from 64 to 512"):
             fn(big, *whole_scan_inputs(big, 1, 64, cuda_device, steps=1), **options)
     assert kernel.launches == before
 
@@ -561,3 +561,54 @@ def test_whole_scan_kernels_match_twins_at_fewer_samples_per_cta_on_card(
     torch.cuda.synchronize()
     assert brk.last_plan[kernel.symbol]["samples_per_cta"] == spc
     assert torch.equal(got, twin(p, acc0, bk, a_hat, **options))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["fusedw", "fusedwb", "fusedc", "fusedc3"])
+@pytest.mark.parametrize("name,batch", [("nano", 9), ("test_insecure", 9)])
+def test_mma_whole_scan_kernels_match_twins_on_all_0x80_key_on_card(cuda_device, impl, name,
+                                                                    batch):
+    """Kernels F and G on a key whose every byte is 0x80: every limb of the
+    sign-twisted words is -128 or its neighbour, where negating a limb
+    instead of the word would be wrong."""
+    fn, twin, options, kernel = WHOLE_SCAN[impl]
+    p = get_params(name)
+    acc0, _, a_hat = whole_scan_inputs(p, batch, 120 + batch, cuda_device)
+    k1, n = p.glwe_dimension + 1, p.degree
+    bk = to_torch_u32(np.full((p.lwe_dimension, k1 * p.pbs_decomposer.levels, k1, n),
+                              0x80808080, np.uint32), cuda_device)
+    before = kernel.launches
+    got = fn(p, acc0, bk, a_hat, **options)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, twin(p, acc0, bk, a_hat, **options))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["fusedw", "fusedc"])
+def test_mma_whole_scan_kernels_refuse_other_degrees_on_card(cuda_device, monkeypatch, impl):
+    """Kernels F and G take Kernel B's degrees, N a power of two from 64 to
+    512: N=32 and large_2048's N=2048 raise ValueError before any launch,
+    and the twin does not stand in."""
+    fn, twin, options, kernel = WHOLE_SCAN[impl]
+    monkeypatch.setattr(brk, twin.__name__, lambda *a, **k: pytest.fail("the twin ran"))
+    base = get_params("nano")
+    before = kernel.launches
+    for k1, n in ((2, 32), (2, 2048)):
+        acc0 = to_torch_u32(np.zeros((1, k1, n), np.uint32), cuda_device)
+        bk = to_torch_u32(np.zeros((1, k1 * base.pbs_decomposer.levels, k1, n), np.uint32),
+                          cuda_device)
+        a_hat = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+        with pytest.raises(ValueError, match="from 64 to 512"):
+            fn(base, acc0, bk, a_hat, **options)
+    assert kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [brk.KERNEL, brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL],
+                         ids=["B", "F", "G"])
+def test_mma_whole_scan_kernels_hold_imma_on_card(cuda_device, kernel):
+    """Kernels B, F and G compute their sums on the int8 tensor cores: their
+    libraries hold IMMA instructions (cuobjdump -sass)."""
+    kernel.load()
+    assert _build.imma_count(kernel.path) > 0

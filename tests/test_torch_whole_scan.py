@@ -35,6 +35,8 @@ from tfhe_tpu_torch.models.keys import keys_from_numpy
 from tfhe_tpu_torch.ops import poly
 from tfhe_tpu_torch.ops.cuda import _build
 from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk
+from tfhe_tpu_torch.ops.decomposer import decompose_balanced_planes, decompose_signed_planes
+from tfhe_tpu_torch.ops.poly import monomial_mul
 from tfhe_tpu_torch.ops.torus import to_numpy_u32, to_torch_u32
 from tfhe_tpu_torch.params import get_params as t_get_params
 
@@ -160,21 +162,24 @@ def kernel_b_a_reads(n):
     return flat.reshape(warps * tiles * 16, n), out.reshape(-1)
 
 
-def kernel_b_step(digits, words, spc, key_limbs):
+def kernel_b_step(digits, words, spc, key_limbs, b_op=None):
     """One step's delta as Kernel B computes it, for the spc samples of one
     CTA: digits int8 [spc, R, N], key step u32 [R, C, N] -> (int64 limb sums
     [spc, C*4, N] with limb 0 left out at key_limbs=3, u32 delta [spc, C, N]).
     Each (r, c, l) is an mma.sync product A [N rows, N] x B [N, 8]: A read
     from the limb planes (with their wrap copy) as ``kernel_b_a_reads``
     says, B[k, n] = digit of sample n mod spc at k (the spare columns of
-    spc < 8 repeat a sample), and the accumulator fragment's c0..c3 of lane
-    (g, t), rows g (c0, c1) and g+8 (c2, c3), samples 2t, 2t+1, stored at
-    the rows' outputs for the samples < spc."""
+    spc < 8 repeat a sample; or ``b_op`` [8, R, N], as read from a staged
+    digit block), and the accumulator fragment's c0..c3 of lane (g, t), rows
+    g (c0, c1) and g+8 (c2, c3), samples 2t, 2t+1, stored at the rows'
+    outputs for the samples < spc."""
     _, r_rows, n = digits.shape
     c_cols = words.shape[1]
     flat, out = kernel_b_a_reads(n)
     lmin = 4 - key_limbs
-    b_op = digits[np.arange(8) % spc].astype(np.float64)  # [8, R, N]
+    if b_op is None:
+        b_op = digits[np.arange(8) % spc]
+    b_op = b_op.astype(np.float64)  # [8, R, N]
     # the (M row of every tile, sample) each lane's c0..c3 hold, samples < spc
     frag = [(g + 8 * (i >> 1), 2 * t + (i & 1)) for g in range(8) for t in range(4)
             for i in range(4) if 2 * t + (i & 1) < spc]
@@ -222,6 +227,183 @@ def test_kernel_b_fragment_reads_match_twin_step(name, spc, key):
         want = poly.ep_contract_matmul(torch.from_numpy(digits), to_torch_u32(words), key_limbs)
         assert np.array_equal(sums, want.numpy())  # limb 0 is 0 in both at key_limbs=3
         assert np.array_equal(delta, to_numpy_u32(poly.ep_combine(want, k1)))
+
+
+# ---------------------------------------------------------------------------
+# Kernel G's cluster step and Kernel F's digit ring, emulated
+# ---------------------------------------------------------------------------
+
+
+def b_operand_from_block(block, row, spc, n):
+    """The B operand [8 samples, N] that ``mma_row.cuh:mma_row`` reads for
+    digit row ``row`` of a [rows][spc][N + 16] int8 block (flat): lane (g, t)
+    starts at word (row*spc + g mod spc)*(N + 16)/4 + t (``lane_of``) and at
+    K step j loads words 8j and 8j + 4 from there, the PTX m16n8k32 B
+    fragment's bytes k = 32j + 4t .. +3 and 32j + 16 + 4t .. +3 of column g."""
+    out = np.zeros((8, n), np.int8)
+    for g in range(8):
+        for t in range(4):
+            word0 = (row * spc + g % spc) * (n + 16) // 4 + t
+            for j in range(n // 32):
+                for half in (0, 1):
+                    at = 4 * (word0 + 8 * j + 4 * half)
+                    k = 32 * j + 16 * half + 4 * t
+                    out[g, k:k + 4] = block[at:at + 4]
+    return out
+
+
+@pytest.mark.parametrize("name,spc,key", [
+    (name, spc, key) for name, spc in (("nano", 8), ("nano", 2), ("test_insecure", 8))
+    for key in ("random", "low-0x80", "0x80")])
+def test_kernel_g_cluster_step_matches_twin_column(name, spc, key):
+    """Kernel G's step, emulated: each CTA q of the cluster writes its own
+    poly's digit rows as ``cols_kernel.cu`` does (rotate_decompose at
+    own + bb*drow + i, stride spc*drow: a [levels][spc][drow] block whose
+    padding holds garbage), the gather lays the C blocks one after another
+    into [R][spc][drow], and CTA p's fragment walk over that block for its
+    one column p gives column p of the twin's limb sums
+    (``ep_contract_matmul``) and delta (``ep_combine``) bit for bit, at
+    key_limbs 4 and 3, on a random key, one whose every low byte is 0x80
+    and one whose every byte is 0x80."""
+    p = t_get_params(name)
+    k1, n, levels = p.glwe_dimension + 1, p.degree, p.pbs_decomposer.levels
+    r = k1 * levels
+    drow = n + 16
+    rng = np.random.default_rng(96)
+    words = rnd_u32(rng, (r, k1, n))
+    if key == "low-0x80":
+        words = (words & np.uint32(0xFFFFFF00)) | np.uint32(0x80)
+    elif key == "0x80":
+        words = np.full((r, k1, n), 0x80808080, np.uint32)
+    digits = rng.integers(-8, 17, size=(spc, r, n), dtype=np.int8)
+    lv, bb, i = np.meshgrid(np.arange(levels), np.arange(spc), np.arange(n), indexing="ij")
+    blocks = []
+    for q in range(k1):  # CTA q's own rows, padding included
+        block = rng.integers(-128, 128, size=levels * spc * drow, dtype=np.int8)
+        block[lv * spc * drow + bb * drow + i] = digits[bb, q * levels + lv, i]
+        blocks.append(block)
+    gathered = np.concatenate(blocks)
+    b_op = np.stack([b_operand_from_block(gathered, row, spc, n) for row in range(r)], axis=1)
+    assert np.array_equal(b_op, digits[np.arange(8) % spc])
+    for key_limbs in (4, 3):
+        want = poly.ep_contract_matmul(torch.from_numpy(digits), to_torch_u32(words), key_limbs)
+        want_delta = to_numpy_u32(poly.ep_combine(want, k1))
+        for col in range(k1):  # the cluster's CTA col
+            sums, delta = kernel_b_step(digits, words[:, col:col + 1], spc, key_limbs, b_op)
+            assert np.array_equal(sums, want.numpy()[:, 4 * col:4 * col + 4])
+            assert np.array_equal(delta[:, 0], want_delta[:, col])
+
+
+def wide_pipe_schedule(c_cols, levels, steps):
+    """Kernel F's digit ring as ``wide_pipe_kernel.cu`` runs it: a list of
+    barrier intervals (what the CTA does between two barriers), each a list
+    of events:
+      ('build', step, poly, slot, lo_row, hi_row) - digits of poly at step
+        into its slot, chunks lo_row .. hi_row-1 of the R row-sized chunks,
+        reading accumulator plane poly;
+      ('row', step, c, r, slot) - column c's mmas on digit row r, read from
+        the slot of poly r // levels;
+      ('column', step, c) - column c's sums added to accumulator plane c.
+    Poly p of step s sits in slot (s*C + p) mod (2C-1).  Step 0's polys are
+    built before the loop; poly c-1 of step s+1 is built chunk r in row r of
+    column c; poly C-1 of step s+1 after column C-1, in an interval of its
+    own."""
+    rows = c_cols * levels
+
+    def slot(step, p):
+        return (step * c_cols + p) % (2 * c_cols - 1)
+
+    intervals = [[("build", 0, p, slot(0, p), 0, rows) for p in range(c_cols)]]
+    for step in range(steps):
+        last = step + 1 == steps
+        for c in range(c_cols):
+            for r in range(rows):
+                ev = [("row", step, c, r, slot(step, r // levels))]
+                if not last and c > 0:
+                    ev.append(("build", step + 1, c - 1, slot(step + 1, c - 1), r, r + 1))
+                if r == rows - 1:
+                    ev.append(("column", step, c))
+                intervals.append(ev)
+        if not last:
+            intervals.append([("build", step + 1, c_cols - 1, slot(step + 1, c_cols - 1), 0,
+                               rows)])
+    return intervals
+
+
+@pytest.mark.parametrize("c_cols", [1, 2, 3])
+def test_kernel_f_digit_ring_schedule(c_cols):
+    """Over 3 steps: no interval both reads and writes a slot or both reads
+    and updates an accumulator plane; a slot is never overwritten while its
+    digits have a read to come; every column of every step reads all R rows
+    of its own step's digits, each complete; and a poly's digits are built
+    from its plane once that plane's column of the step is done."""
+    levels, steps = 6, 3
+    rows = c_cols * levels
+    held = {}  # slot -> [(step, poly), chunk rows built]
+    done = set()  # (step, c) columns whose sums are in their plane
+    read = {}  # (step, c) -> rows read
+    for ev in wide_pipe_schedule(c_cols, levels, steps):
+        written = {e[3] for e in ev if e[0] == "build"}
+        assert not written & {e[4] for e in ev if e[0] == "row"}
+        assert not ({e[2] for e in ev if e[0] == "build"}
+                    & {e[2] for e in ev if e[0] == "column"})
+        for e in ev:
+            if e[0] == "row":
+                _, step, c, r, slot = e
+                content, chunks = held[slot]
+                assert content == (step, r // levels) and chunks == set(range(rows))
+                read.setdefault((step, c), set()).add(r)
+            elif e[0] == "build":
+                _, step, poly, slot, lo, hi = e
+                # its plane holds step-1's sums of column poly: done, or step 0
+                assert step == 0 or (step - 1, poly) in done
+                if held.get(slot, [None])[0] != (step, poly):
+                    old = held.get(slot, [None])[0]
+                    # the old digits have no read to come: their step's
+                    # last column is done
+                    assert old is None or (old[0], c_cols - 1) in done
+                    held[slot] = [(step, poly), set()]
+                held[slot][1].update(range(lo, hi))
+        done.update((e[1], e[2]) for e in ev if e[0] == "column")
+    assert read == {(s, c): set(range(rows)) for s in range(steps) for c in range(c_cols)}
+
+
+@pytest.mark.parametrize("balanced", [False, True])
+def test_kernel_f_digit_ring_replay_matches_twin(nano_case, balanced):
+    """``wide_pipe_schedule`` run on the twin's step functions at nano (one
+    CTA of 8 samples: each row-chunk builds coefficients [r*chunk,
+    (r+1)*chunk) of the 8*N, chunk = ceil(8*N / R)) equals
+    ``blind_rotate_fused_wide_pipe_ref``."""
+    p, acc0_np, bk_np, a_hat_np, _ = nano_case
+    dp = p.pbs_decomposer
+    k1, n, levels = p.glwe_dimension + 1, p.degree, dp.levels
+    rows = k1 * levels
+    acc0, bk = to_torch_u32(acc0_np), to_torch_u32(bk_np)
+    a_hat = torch.from_numpy(a_hat_np)
+    b, steps = acc0.shape[0], bk.shape[0]
+    decompose = decompose_balanced_planes if balanced else decompose_signed_planes
+    chunk = -(-b * n // rows)
+    acc = acc0.clone()
+    ring = torch.zeros((2 * k1 - 1, levels, b * n), dtype=torch.int8)
+    sums = None
+    for ev in wide_pipe_schedule(k1, levels, steps):
+        for e in ev:
+            if e[0] == "build":
+                _, step, poly_, slot, lo, hi = e
+                plane = acc[:, poly_]
+                digits = decompose(monomial_mul(plane, a_hat[step]) - plane, dp)
+                items = slice(lo * chunk, min(b * n, hi * chunk))
+                ring[slot][:, items] = digits.reshape(levels, b * n)[:, items]
+            elif e[0] == "row":
+                _, step, c, r, slot = e
+                drow = ring[slot][r % levels].reshape(b, 1, n)
+                part = poly.ep_contract_matmul(drow, bk[step, r:r + 1])[:, 4 * c:4 * c + 4]
+                sums = part if r == 0 else sums + part
+            else:
+                _, step, c = e
+                acc[:, c] = acc[:, c] + poly.ep_combine(sums, 1)[:, 0]
+    want = brk.blind_rotate_fused_wide_pipe_ref(p, acc0, bk, a_hat, balanced)
+    assert torch.equal(acc, want)
 
 
 # ---------------------------------------------------------------------------
@@ -351,15 +533,18 @@ H100_OPTIN = 232448  # bytes of opt-in shared memory per block on an H100
 
 
 @pytest.mark.parametrize("kind,bytes_at_8,on_h100", [
-    ("fused", 163104, 8), ("pipe", 201280, 8), ("wide_pipe", 279616, 4), ("cols", 143904, 8)])
+    ("fused", 163104, 8), ("pipe", 201280, 8), ("wide_pipe", 213824, 8), ("cols", 181024, 8)])
 def test_samples_per_cta_on_h100_budget(kind, bytes_at_8, on_h100):
-    """At default_128 every kernel but F keeps 8 samples per CTA (Kernel B's
-    measured times stay comparable); F's two staged key blocks leave room
-    for 4."""
+    """At default_128 every kernel keeps 8 samples per CTA, so each tensor-core
+    kernel fills the mma's 8 sample columns: F's ring of 2C-1 = 5 digit
+    slots fits beside its accumulators, plane buffers and raw rows, where
+    2C = 6 would not (239,168 bytes)."""
     p = t_get_params("default_128")
     assert brk.smem_bytes(kind, p, 8) == bytes_at_8
     pick = _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s), H100_OPTIN)
     assert pick == on_h100
+    if kind == "wide_pipe":  # one more slot would not fit
+        assert bytes_at_8 + 6 * 8 * (512 + 16) == 239168 > H100_OPTIN
 
 
 def test_samples_per_cta_under_smaller_budgets():
@@ -381,13 +566,24 @@ def test_samples_per_cta_under_smaller_budgets():
 
 
 def test_samples_per_cta_at_larger_degrees():
-    """N=2048: Kernel F's two key blocks alone pass the H100's budget; the
-    others fit fewer samples."""
+    """N=2048: Kernels B and E fit fewer samples; Kernels F and G take only
+    Kernel B's degrees (N from 64 to 512), so their wrappers refuse
+    large_2048 with ValueError before any launch (as Kernel B's C entry
+    point refuses it)."""
     p = t_get_params("large_2048")
     picks = {kind: _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s),
                                                H100_OPTIN)
-             for kind in ("fused", "pipe", "wide_pipe", "cols")}
-    assert picks == {"fused": 2, "pipe": 2, "wide_pipe": None, "cols": 2}
+             for kind in ("fused", "pipe")}
+    assert picks == {"fused": 2, "pipe": 2}
+    k1, n = p.glwe_dimension + 1, p.degree
+    meta = (torch.empty((1, k1, n), dtype=torch.int32, device="meta"),
+            torch.empty((1, k1 * p.pbs_decomposer.levels, k1, n), dtype=torch.int32,
+                        device="meta"),
+            torch.empty((1, 1), dtype=torch.int32, device="meta"))
+    for fn in (brk.blind_rotate_fused_wide_pipe, brk.blind_rotate_fused_cols):
+        with pytest.raises(ValueError, match="from 64 to 512"):
+            fn(p, *meta)
+    assert brk.WIDE_PIPE_KERNEL.launches == brk.COLS_KERNEL.launches == 0
 
 
 # ---------------------------------------------------------------------------

@@ -6,16 +6,10 @@
 // (the low balanced byte of each sign-twisted key word dropped).  The step
 // is the one whole_scan.cuh writes out.
 //
-// As the TPU kernel does, the product is taken as int8 limb planes: with
-// limb_l the balanced bytes of the sign-twisted key word w = +-g,
-//
-//   sum_l[c, o] = sum_{r, m} d[r, m] * limb_l(w[r, c, (o - m) mod 2N])   (exact in s32:
-//                 |sum| <= R*N*16*128 < 2^31)
-//   acc[c, o]  += sum_l 2^(8l) * sum_l                                     (mod 2^32)
-//
-// which is the u32 product exactly, because the limbs recombine to w mod
-// 2^32.  At key_limbs=3 limb 0 is not computed at all, which is
-// whole_scan::key_word's truncation.
+// As the TPU kernel does, the product is taken as int8 limb planes on the
+// tensor cores: the contraction of one staged key row, mma_row.cuh (shared
+// with Kernels F and G), whose comment derives it.  At key_limbs=3 limb 0 is
+// not computed at all, which is whole_scan::key_word's truncation.
 //
 // What bounds it on the H100: int8 tensor-core operations, R*C*L*N*N
 // multiply-adds per sample and step (L = key_limbs; 5.7e7 at default_128,
@@ -33,22 +27,9 @@
 // accumulators (S*C*N u32) and digits (R*S rows of N int8, padded by 16
 // bytes) in shared memory.  The rotation is a gather with the closed-form
 // sign, then the digits (whole_scan::rotate_decompose).  The sums run on
-// mma.sync m16n8k32 s8 x s8 -> s32 with the circulant as A (M = 16 outputs
-// o), the digits as B (N = the 8 samples; with S < 8 the spare columns
-// repeat a sample and are dropped) and the input coefficients m as K.  An
-// A register holds the four bytes P_l[x .. x+3] of row o, x = (m0 + 4t - o)
-// mod 2N, one aligned load from the byte-shifted limb planes of
-// limb_planes.cuh; a B register holds 4 consecutive digits of one sample.
-//
-// A warp owns T = 4 M tiles (2 at N=64) 32 outputs apart, of one column,
-// and all L kept limbs: L*T*4 s32 accumulators per thread.  With the two
-// halves of each tile's M rows swapped (row g is output o + 8 + g, row g+8
-// output o + g), a lane's four A registers are the words P_l[x + 8i], i =
-// 0..3, and tile a's quad at K step j is the quad of x + 32(j - a), which
-// the warp's first tile loaded at step j - a.  So each K step loads one
-// quad per limb (4 words) for T mmas, the quads rotate through T register
-// slots that the compiler fixes (the K steps run in groups of T), and 2
-// digit words per K step serve all L*T mmas.  Columns run one after another
+// mma.sync through mma_row: the circulant as A (M = 16 outputs), the 8
+// samples as B, the input coefficients as K; a warp owns 4 M tiles of one
+// column and all kept limbs.  Columns run one after another
 // (the accumulators of all C columns would pass the register file); at a
 // column's end each thread recombines its limbs and adds them to the
 // accumulators in shared memory.  Key rows run in the order (step, c, r):
@@ -61,6 +42,7 @@
 #include <cuda_runtime.h>
 
 #include "limb_planes.cuh"
+#include "mma_row.cuh"
 #include "whole_scan.cuh"
 
 namespace {
@@ -71,17 +53,12 @@ using limb_planes::cp_async16;
 using limb_planes::cp_async_commit_wait;
 using limb_planes::digit_row_bytes;
 using limb_planes::kLimbs;
-using limb_planes::mma_s8;
+using limb_planes::mma_row;
+using limb_planes::plane_set_words;
+using limb_planes::tiles_per_warp;
 using whole_scan::Shape;
 
 constexpr int kMaxThreads = 256;  // N/(16*T) warps: 8 at N=512
-
-// M tiles per warp: 4, or 2 at N=64 (a warp's tiles lie 32 outputs apart,
-// and the K steps, N/32, run in groups of T).
-__host__ __device__ inline int tiles_per_warp(int N) { return N >= 128 ? 4 : 2; }
-
-// Words of one set of 16 plane copies.
-__host__ __device__ inline int plane_set_words(int N) { return kLimbs * 4 * copy_words(N); }
 
 __host__ size_t smem_bytes(const Shape& s) {
   const size_t S = s.spc, C = s.C, N = s.N, R = C * s.levels;
@@ -90,55 +67,6 @@ __host__ size_t smem_bytes(const Shape& s) {
          + 4 * 2 * N                                          // two raw key rows
          + R * S * digit_row_bytes(s.N)                       // digits
          + 4 * S;                                             // exponents
-}
-
-// One staged key row's mmas for this warp: all N/32 K steps, the L kept
-// limbs (4 - L .. 3), the warp's T tiles.  pl points at the lane's copy
-// (x0 & 3) of the first kept limb, x0 = (4t - o_t - 8 - g) mod 2N for the
-// warp's first tile o_t; tile a is o_t + 32a.  With the two halves of the M
-// rows swapped (row g is output o_t + 8 + g, row g + 8 output o_t + g), the
-// four A registers of a lane are P_l[x + 8i .. +3], i = 0..3: words w, w+2,
-// w+4, w+6 of its copy, w = x >> 2.  Tile a at K step j reads the quad of x0
-// + 32(j - a), which tile 0 loaded at step j - a: each K step loads one quad
-// per limb (4 words) for T mmas, and the quads rotate through T register
-// slots, fixed at compile time because the K steps run in groups of T.
-// drow points at word t of the lane's digit row (sample g mod S).  When
-// graw_next is not null, the warp builds its share of the next row's planes
-// (from graw_next into planes_next) after its first group of K steps, while
-// those mmas are still in the tensor pipe.
-template <int L, int T>
-__device__ __forceinline__ void mma_row(int (&sums)[L][T][4], const uint32_t* pl,
-                                        const uint32_t* drow, int N, int w0,
-                                        const uint32_t* graw_next, uint32_t* planes_next) {
-  const int cw = copy_words(N), wmask = N / 2 - 1;
-  uint32_t quad[L][T][4];  // quad[l][(j - a) mod T] = tile a's registers at step j
-  // the quads of steps -1 .. -(T-1); the copies repeat their first 8 words
-  // after the last, so the words w+2i of a masked w need no second mask
-#pragma unroll
-  for (int jj = 1; jj < T; ++jj) {
-    const uint32_t* p = pl + ((w0 - 8 * jj) & wmask);
-#pragma unroll
-    for (int l = 0; l < L; ++l)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) quad[l][T - jj][i] = p[l * 4 * cw + 2 * i];
-  }
-  for (int j0 = 0; j0 < N / 32; j0 += T) {
-#pragma unroll
-    for (int jj = 0; jj < T; ++jj) {
-      const int j = j0 + jj;
-      const uint32_t b0 = drow[8 * j], b1 = drow[8 * j + 4];
-      const uint32_t* p = pl + ((w0 + 8 * j) & wmask);
-#pragma unroll
-      for (int l = 0; l < L; ++l)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) quad[l][jj][i] = p[l * 4 * cw + 2 * i];
-#pragma unroll
-      for (int l = 0; l < L; ++l)
-#pragma unroll
-        for (int a = 0; a < T; ++a) mma_s8(sums[l][a], quad[l][(jj - a + T) % T], b0, b1);
-    }
-    if (j0 == 0 && graw_next != nullptr) build_planes<true>(graw_next, planes_next, N);
-  }
 }
 
 // L: key limbs kept (4, or 3 with limb 0 dropped); T: tiles_per_warp(N).
@@ -158,6 +86,9 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restric
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int b0 = blockIdx.x * S;
   const int nb = min(S, s.B - b0);
+  // the lane's place in the warp tiling (limb_planes::lane_of and
+  // add_column, which Kernels F and G call, spell out these lines; Kernel B
+  // keeps them inline, which keeps its machine code as it was)
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   // the warp's first tile: warp pairs share 32T outputs, interleaved by 16
   const int o_t = 32 * T * (warp >> 1) + 16 * (warp & 1);

@@ -1,6 +1,6 @@
 // The int8 tensor-core pieces shared by the contraction kernels A and H
-// (ep_contract.cuh) and the whole-scan blind rotation, Kernel B
-// (blind_rotate_kernel.cu): the mma.sync m16n8k32 s8 x s8 -> s32 wrapper,
+// (ep_contract.cuh) and the whole-scan blind rotations, Kernels B, F and G
+// (through mma_row.cuh): the mma.sync m16n8k32 s8 x s8 -> s32 wrapper,
 // cp.async, and the byte-shifted limb planes of one key row.
 //
 // The negacyclic circulant of a key row g (u32 [N]) is never built.  With

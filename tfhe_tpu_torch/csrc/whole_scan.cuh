@@ -1,9 +1,10 @@
 // Device helpers shared by the whole-scan blind-rotation kernels (Kernels B,
 // E, F and G): the gadget decompositions of one rotated-minus-accumulator
-// value (all four), and for the u32 kernels E, F and G the truncated-key
-// word, the staged [g, -g] row and the per-row negacyclic contraction of a
-// thread's samples against it (Kernel B takes the int8 limb planes of
-// limb_planes.cuh instead, and drops limb 0 at key_limbs = 3).
+// value (all four), and for Kernel E alone, the one u32 kernel left, the
+// truncated-key word, the staged [g, -g] row and the per-row negacyclic
+// contraction of a thread's samples against it (Kernels B, F and G take the
+// int8 limb planes of limb_planes.cuh through mma_row.cuh instead, and drop
+// limb 0 at key_limbs = 3).
 //
 // Every kernel computes, per step s and sample b with a = a_hat[s, b] mod 2N:
 //

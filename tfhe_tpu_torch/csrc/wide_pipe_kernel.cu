@@ -9,172 +9,180 @@
 // key block, with each poly's next-step digits staged as soon as its column
 // is final.
 //
-// What bounds it on the H100: integer multiply-adds, R*N*C*N per sample and
-// step (1.05e13 for B=1024 over 722 steps at default_128).
-// What a scan that stages one key row at a time spends besides: CTA
-// barriers around the staging of each row.
+// What bounds it on the H100: int8 tensor-core operations, as for Kernel B:
+// R*C*4*N*N multiply-adds per sample and step, 42.31 ms for B=1024 over 722
+// steps at default_128 at the 1979e12 ops/s peak.  The sums are Kernel B's,
+// on mma.sync over the int8 limb planes (mma_row.cuh).  What Kernel B spends
+// besides is mostly exposed: the plane build and the digit phase.
 //
-// Design: column-outer.  For each step s and output column c the CTA copies
-// the column's whole key block (R rows of N u32, 36 KB at default_128) from
-// device memory into shared memory with 16-byte cp.async, into one of two
-// buffers, started as soon as column c-1's contraction starts (the buffer it
-// fills was last read by column c-2).  So the copy of the next block runs
-// under the current contraction, and the contraction of a column runs over
-// all R rows with no barrier between them.  The block holds g only; a thread
-// loads its 16-word window of +-g as four 16-byte vectors and negates the
-// vectors that lie in the wrapped half.  Each row is padded by 4 words in 32
-// so the eight threads of a quarter warp hit distinct 16-byte bank groups.
-// A thread owns kU=8 consecutive outputs of the column for one sample (S
-// groups of N/8 threads).  After column c's update and a barrier, every
-// thread rotates and decomposes its share of poly c by step s+1's exponents
-// into the other buffer of a parity double buffer of digits.  Shared memory:
-// 2 key blocks, S*C*N u32 accumulators and 2*S*R*N int8 digits (177 KB at
-// default_128 with S=4; the wrapper picks S in {8, 4, 2, 1} from the card's
-// opt-in budget).
+// Design: Kernel B's CTA (S samples for all n steps, their accumulators in
+// shared memory, columns one after another, key rows in the order (step, c,
+// r) by cp.async two rows ahead, the next row's planes built under the
+// current row's mmas) with the TPU kernel's digit pipeline.  A column's sums
+// still run over all R rows in registers, the TPU's wide contraction, but
+// its key block (36 KB at default_128) is not staged whole: beside the digit
+// slots the budget has room for two rows.  The moment column c's plane is
+// final (the barrier that opens column c+1), poly c's digits for step s+1
+// are built under column c+1's mmas: in row r of that column each warp
+// builds its share of chunk r of the S*N coefficients after its first
+// group of K steps, where mma_row builds the next planes.  Only the last
+// poly's digits are built exposed, after column C-1.  The digits live in a
+// ring of 2C-1 poly slots, [levels][S][drow] each (25 KB at default_128
+// with S=8): step s+1's polys 0..C-2 are written while column C-1 of step s
+// still reads all C of step s, and step s+1's poly C-1 takes the slot of
+// step s's poly 0 once column C-1 is done.  Poly p of step s sits in slot
+// (s*C + p) mod (2C-1); the slot it overwrites was last read by a column
+// that has finished.  Shared memory: S*C*N u32 accumulators, two plane
+// buffers, two raw key rows and the ring (214 KB at default_128 with S=8;
+// the wrapper picks S in {8, 4, 2, 1} from the card's opt-in budget).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "limb_planes.cuh"
+#include "mma_row.cuh"
 #include "whole_scan.cuh"
 
 namespace {
 
-using whole_scan::kU;
+using limb_planes::build_planes;
+using limb_planes::cp_async16;
+using limb_planes::cp_async_commit_wait;
+using limb_planes::digit_row_bytes;
+using limb_planes::mma_row;
+using limb_planes::plane_set_words;
+using limb_planes::tiles_per_warp;
 using whole_scan::Shape;
 
-constexpr int kMaxThreads = 512;
-
-__host__ __device__ __forceinline__ int row_words(int N) { return N + N / 8; }
-
-// padded position of word j of a staged key row: 4 padding words per 32
-__device__ __forceinline__ int kpad(int j) { return j + 4 * (j >> 5); }
-
-__host__ int threads_for(const Shape& s) { return ((s.N / kU) * s.spc + 31) / 32 * 32; }
+constexpr int kMaxThreads = 256;  // N/(16*T) warps: 8 at N=512
 
 __host__ size_t smem_bytes(const Shape& s) {
-  const size_t S = s.spc, C = s.C, N = s.N, R = C * s.levels;
-  return 4 * 2 * R * row_words(s.N) + 4 * S * C * N + 2 * S * R * N + 4 * 2 * S;
+  const size_t S = s.spc, C = s.C, N = s.N, slot = s.levels * S * digit_row_bytes(s.N);
+  return 4 * S * C * N                                        // accumulators
+         + 4 * 2 * static_cast<size_t>(plane_set_words(s.N))  // two plane buffers
+         + 4 * 2 * N                                          // two raw key rows
+         + (2 * C - 1) * slot                                 // the digit ring
+         + 4 * 2 * S;                                         // exponents, by step parity
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-// Start the copy of key block (step, column c) into `dst` and commit it.
-__device__ __forceinline__ void copy_block(const uint32_t* __restrict__ bk, int step, int c,
-                                           const Shape& s, uint32_t* dst, int tid, int T) {
-  const int R = s.C * s.levels, q_per_row = s.N / 4, rw = row_words(s.N);
-  for (int idx = tid; idx < R * q_per_row; idx += T) {
-    const int r = idx / q_per_row, j = (idx - r * q_per_row) * 4;
-    cp_async16(dst + r * rw + kpad(j),
-               bk + ((static_cast<size_t>(step) * R + r) * s.C + c) * s.N + j);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
+// T: tiles_per_warp(N); the key is exact (all 4 limbs).
+template <int T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 wide_pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
                  const int32_t* __restrict__ a_hat, uint32_t* __restrict__ out, Shape s) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int S = s.spc, N = s.N, C = s.C, R = C * s.levels, CN = C * N, RN = R * N;
-  const int mask2 = 2 * N - 1, rw = row_words(N);
-  uint32_t* kblk = reinterpret_cast<uint32_t*>(smem);         // [2][R][rw]
-  uint32_t* acc = kblk + 2 * R * rw;                           // [S][C][N]
-  int8_t* dig = reinterpret_cast<int8_t*>(acc + S * CN);      // [2][S][R][N]
-  int* a_s = reinterpret_cast<int*>(dig + 2 * S * RN);        // [2][S] by step parity
+  const int S = s.spc, N = s.N, C = s.C, R = C * s.levels, CN = C * N, SN = S * N;
+  const int mask2 = 2 * N - 1, ps = plane_set_words(N), drow = digit_row_bytes(N);
+  const int blk = s.levels * S * drow, nslots = 2 * C - 1;
+  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);       // [S][C][N]
+  uint32_t* planes = acc + S * CN;                          // [2][16 copies]
+  uint32_t* graw = planes + 2 * ps;                         // [2][N]
+  int8_t* ring = reinterpret_cast<int8_t*>(graw + 2 * N);   // [2C-1][levels][S][drow]
+  int* a_s = reinterpret_cast<int*>(ring + nslots * blk);   // [2][S] by step parity
 
-  const int tid = threadIdx.x, T = blockDim.x;
+  const int tid = threadIdx.x, nthr = blockDim.x;
   const int b0 = blockIdx.x * S;
   const int nb = min(S, s.B - b0);
-  const int upc = N / kU;
-  const bool active = tid < upc * S;
-  const int o0 = (tid % upc) * kU, bb = active ? tid / upc : 0;
+  const limb_planes::Lane ln = limb_planes::lane_of<4, T>(N, S);
 
-  if (s.n_steps > 0) copy_block(bk, 0, 0, s, kblk, tid, T);
-  for (int idx = tid; idx < S * CN; idx += T) {
-    const int b = idx / CN;
-    acc[idx] = b < nb ? acc0[static_cast<size_t>(b0) * CN + idx] : 0u;
+  // the digits of coefficients [lo, hi) of the S*N of poly p at step `step`
+  // (whose exponents are at a_s[step & 1]) into its ring slot
+  auto digits = [&](int step, int p, int lo, int hi) {
+    int8_t* slot = ring + ((step * C + p) % nslots) * blk;
+    const int* a = a_s + (step & 1) * S;
+    for (int idx = lo + tid; idx < hi; idx += nthr) {
+      const int bb = idx / N, i = idx - bb * N;
+      whole_scan::rotate_decompose(acc + bb * CN + p * N, i, a[bb], s, slot + bb * drow + i,
+                                   S * drow);
+    }
+  };
+
+  for (int idx = tid; idx < S * CN; idx += nthr) {
+    const int bb = idx / CN;
+    acc[idx] = bb < nb ? acc0[static_cast<size_t>(b0) * CN + idx] : 0u;
   }
   if (tid < S) a_s[tid] = tid < nb ? (a_hat[b0 + tid] & mask2) : 0;
+  // key row q = (step, c, r) of the sequence, 16-byte pieces into graw[q & 1]
+  const int rows = s.n_steps * R * C;
+  auto issue = [&](int q) {
+    const int step = q / (R * C), cr = q - step * R * C, c = cr / R, r = cr - c * R;
+    const uint32_t* src = bk + ((static_cast<size_t>(step) * R + r) * C + c) * N;
+    uint32_t* dst = graw + (q & 1) * N;
+    for (int ch = tid; ch < N / 4; ch += nthr) cp_async16(dst + 4 * ch, src + 4 * ch, true);
+  };
+  if (rows > 0) issue(0);
   __syncthreads();
-  for (int idx = tid; idx < S * CN; idx += T) {
-    const int b = idx / CN, rem = idx - b * CN, p = rem / N, i = rem - p * N;
-    whole_scan::rotate_decompose(acc + b * CN + p * N, i, a_s[b], s,
-                                 dig + (b * R + p * s.levels) * N + i, N);
+  for (int p = 0; p < C && s.n_steps > 0; ++p) digits(0, p, 0, SN);
+  if (rows > 0) {
+    cp_async_commit_wait();
+    __syncthreads();
+    build_planes<true>(graw, planes, N);
+    if (rows > 1) issue(1);
   }
 
-  int blk = 0;  // key blocks consumed so far; block blk sits in buffer blk % 2
+  const int chunk = (SN + R - 1) / R;  // coefficients built per row
+  int q = 0;
   for (int step = 0; step < s.n_steps; ++step) {
     const bool last = step + 1 == s.n_steps;
-    int* a_next = a_s + ((step + 1) & 1) * S;
+    // step s+1's exponents take the parity whose digits (step s-1's) are built
     if (!last && tid < S)
-      a_next[tid] = tid < nb ? (a_hat[static_cast<size_t>(step + 1) * s.B + b0 + tid] & mask2)
-                             : 0;
-    const int8_t* dcur = dig + (step & 1) * S * RN + bb * RN;
-    int8_t* dnext = dig + ((step + 1) & 1) * S * RN;
-    for (int c = 0; c < C; ++c, ++blk) {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      __syncthreads();  // block blk has landed; the other buffer is free
-      if (c + 1 < C)
-        copy_block(bk, step, c + 1, s, kblk + ((blk + 1) & 1) * R * rw, tid, T);
-      else if (!last)
-        copy_block(bk, step + 1, 0, s, kblk + ((blk + 1) & 1) * R * rw, tid, T);
-      const uint32_t* kb = kblk + (blk & 1) * R * rw;
-
-      uint32_t delta[kU];
+      a_s[((step + 1) & 1) * S + tid] =
+          tid < nb ? (a_hat[static_cast<size_t>(step + 1) * s.B + b0 + tid] & mask2) : 0;
+    for (int c = 0; c < C; ++c) {
+      int sums[4][T][4];
 #pragma unroll
-      for (int u = 0; u < kU; ++u) delta[u] = 0u;
-      if (active) {
-        for (int r = 0; r < R; ++r) {
-          const uint32_t* row = kb + r * rw;
-          const int8_t* drow = dcur + r * N;
-          for (int m0 = 0; m0 < N; m0 += kU) {
-            // win[t] = +-g[(o0 - m0 - kU + t) mod 2N]; output o0+u at m0+mm
-            // reads win[u - mm + kU].  The window starts on a multiple of 8
-            // and 2N is one, so each 4-word vector lies in one half.
-            uint32_t win[2 * kU];
-            const int start = (o0 - m0 - kU) & mask2;
+      for (int l = 0; l < 4; ++l)
 #pragma unroll
-            for (int v = 0; v < 4; ++v) {
-              const int idx = (start + 4 * v) & mask2;
-              uint4 q = *reinterpret_cast<const uint4*>(row + kpad(idx & (N - 1)));
-              if (idx >= N) {
-                q.x = 0u - q.x;
-                q.y = 0u - q.y;
-                q.z = 0u - q.z;
-                q.w = 0u - q.w;
-              }
-              win[4 * v] = q.x;
-              win[4 * v + 1] = q.y;
-              win[4 * v + 2] = q.z;
-              win[4 * v + 3] = q.w;
-            }
-            const uint2 dv = *reinterpret_cast<const uint2*>(drow + m0);
+        for (int a = 0; a < T; ++a)
 #pragma unroll
-            for (int mm = 0; mm < kU; ++mm) {
-              const uint32_t d =
-                  static_cast<uint32_t>(whole_scan::sbyte(mm < 4 ? dv.x : dv.y, mm & 3));
-#pragma unroll
-              for (int u = 0; u < kU; ++u) delta[u] += d * win[u - mm + kU];
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kU; ++u) acc[bb * CN + c * N + o0 + u] += delta[u];
+          for (int i = 0; i < 4; ++i) sums[l][a][i] = 0;
+      for (int r = 0; r < R; ++r, ++q) {
+        // row q+1's words have landed, every warp is done with row q-1 (whose
+        // plane buffer and raw row are free), and plane c-1 is final
+        cp_async_commit_wait();
+        __syncthreads();
+        if (q + 2 < rows) issue(q + 2);
+        const int8_t* slot = ring + ((step * C + r / s.levels) % nslots) * blk;
+        const int8_t* row = slot + (r % s.levels) * S * drow;
+        auto next_digits = [&] {
+          if (!last && c > 0) digits(step + 1, c - 1, r * chunk, min(SN, (r + 1) * chunk));
+        };
+        mma_row<4, T>(sums, planes + (q & 1) * ps + ln.copy,
+                      reinterpret_cast<const uint32_t*>(row) + ln.dig, N, ln.x0 >> 2,
+                      q + 1 < rows ? graw + ((q + 1) & 1) * N : nullptr,
+                      planes + ((q + 1) & 1) * ps, next_digits);
       }
-      if (last) continue;
-      __syncthreads();  // plane c is final
-      for (int idx = tid; idx < S * N; idx += T) {
-        const int b = idx / N, i = idx - b * N;
-        whole_scan::rotate_decompose(acc + b * CN + c * N, i, a_next[b], s,
-                                     dnext + (b * R + c * s.levels) * N + i, N);
-      }
+      limb_planes::add_column<4, T>(sums, acc, CN, c * N, ln, S);
+    }
+    if (!last) {
+      __syncthreads();  // plane C-1 is final and every column of step s is read
+      digits(step + 1, C - 1, 0, SN);
+      // the next row's barrier orders these digits before their first read
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < nb * CN; idx += T)
+  for (int idx = tid; idx < nb * CN; idx += nthr)
     out[static_cast<size_t>(b0) * CN + idx] = acc[idx];
+}
+
+template <int T>
+int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const Shape& s,
+           int* info, cudaStream_t stream) {
+  const int threads = 32 * (s.N / (16 * T));
+  const size_t smem = smem_bytes(s);
+  if (smem > static_cast<size_t>(whole_scan::smem_optin()))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_pipe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = s.spc;
+  info[1] = threads;
+  info[2] = static_cast<int>(smem);
+  info[3] = (s.B + s.spc - 1) / s.spc;
+  wide_pipe_kernel<T><<<info[3], threads, smem, stream>>>(
+      static_cast<const uint32_t*>(acc0), static_cast<const uint32_t*>(bk),
+      static_cast<const int32_t*>(a_hat), static_cast<uint32_t*>(out), s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -185,34 +193,22 @@ extern "C" {
 // 16-byte aligned), a_hat int32 [n, B] -> out u32 [B, C, N], exact key,
 // with `spc` samples per CTA.  info (host, 4 ints) receives the plan:
 // samples per CTA, threads per CTA, dynamic shared memory bytes and CTAs.
-// Returns cudaErrorInvalidValue unless N is a power of two >= 32, C >= 1,
-// B >= 1, spc is 1, 2, 4 or 8, the threads fit kMaxThreads and the shared
-// memory fits the card's opt-in budget.
+// Returns cudaErrorInvalidValue unless N is a power of two with 64 <= N <=
+// 512 (Kernel B's tiles), C >= 1, B >= 1, bk is 16-byte aligned, spc is 1,
+// 2, 4 or 8 and the shared memory fits the card's opt-in budget.
 int blind_rotate_fused_wide_pipe(const void* acc0, const void* bk, const void* a_hat,
                                  void* out, int n_steps, int B, int C, int N, int levels,
                                  int log_base, int ignored_bits, int balanced,
                                  unsigned int balanced_offset, int spc, int* info,
                                  void* stream) {
+  if (N < 64 || N > 512 || (N & (N - 1)) || C < 1 || B < 1 ||
+      reinterpret_cast<uintptr_t>(bk) % 16 || (spc != 1 && spc != 2 && spc != 4 && spc != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Shape s{n_steps, B, C, N, levels, log_base, ignored_bits, balanced, balanced_offset,
                 4, spc};
-  if (N < 32 || (N & (N - 1)) || C < 1 || B < 1 ||
-      (spc != 1 && spc != 2 && spc != 4 && spc != 8) || threads_for(s) > kMaxThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(s);
-  if (smem > static_cast<size_t>(whole_scan::smem_optin()))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(wide_pipe_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = spc;
-  info[1] = threads_for(s);
-  info[2] = static_cast<int>(smem);
-  info[3] = (B + spc - 1) / spc;
-  wide_pipe_kernel<<<info[3], info[1], smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(acc0), static_cast<const uint32_t*>(bk),
-      static_cast<const int32_t*>(a_hat), static_cast<uint32_t*>(out), s);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return tiles_per_warp(N) == 4 ? launch<4>(acc0, bk, a_hat, out, s, info, st)
+                                : launch<2>(acc0, bk, a_hat, out, s, info, st);
 }
 
 const char* tfhe_cuda_error_string(int err) {

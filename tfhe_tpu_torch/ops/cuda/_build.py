@@ -65,6 +65,14 @@ def build(name: str) -> tuple[Path, str]:
     return lib, proc.stderr
 
 
+def imma_count(lib: Path) -> int:
+    """The IMMA (integer tensor-core mma) instructions in a built library,
+    from ``cuobjdump -sass`` of the toolkit that built it."""
+    sass = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    return sum("IMMA" in ln for ln in sass.splitlines())
+
+
 class CudaKernel:
     """One C entry point of one ``csrc`` source, loaded at first launch.
 

@@ -10,13 +10,15 @@ hand-written kernel and plain twin.
     carry-chain digits, ``key_limbs`` 4 or 3 ('fusedp', 'fusedp3');
   * ``blind_rotate_fused_wide_pipe`` — Kernel F (``csrc/wide_pipe_kernel.cu``):
     both digit conventions, exact key ('fusedw', 'fusedwb');
-  * ``blind_rotate_fused_cols`` — Kernel G (``csrc/cols_kernel.cu``):
-    carry-chain digits, ``key_limbs`` 4 or 3 ('fusedc', 'fusedc3').
+  * ``blind_rotate_fused_cols`` — Kernel G (``csrc/cols_kernel.cu``, a
+    thread-block cluster per sample group): carry-chain digits,
+    ``key_limbs`` 4 or 3 ('fusedc', 'fusedc3').
 
 All four compute the same step (``csrc/whole_scan.cuh``), so at one digit
 convention and key width they agree bit for bit; they differ in schedule
-(and Kernel B in arithmetic: int8 limb sums recombined mod 2^32, where E, F
-and G multiply-add in u32).
+and arithmetic: B, F and G share one int8 tensor-core contraction
+(``csrc/mma_row.cuh``: limb sums recombined mod 2^32) and take N a power of
+two from 64 to 512; E multiply-adds in u32.
 ``key_limbs=3`` drops the low byte of each sign-twisted key word, as the TPU
 kernels drop their lowest int8 limb plane: an approximate mode that spends
 part of the gate's noise margin (PERF.md measures how much at default_128).
@@ -25,7 +27,8 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain twin
 ``*_ref`` for CPU tensors; it raises for anything else.  On the card the
 samples per CTA are the largest of ``SAMPLES_PER_CTA`` whose shared memory
 fits the card's budget (``_build.smem_budget``); a shape that does not fit
-one sample raises ``ValueError`` before anything is launched.  Unlike the
+one sample, or for F and G an N outside 64..512, raises ``ValueError``
+before anything is launched.  Unlike the
 TPU kernels, whose batch lives in VMEM (2048 samples per call for
 ``fusedp``, 1536 for ``fusedw``), each kernel takes any batch in one launch.
 u32 values are int32 tensors (see ``ops/torus.py``).
@@ -63,14 +66,14 @@ WIDE_PIPE_KERNEL = CudaKernel("wide_pipe_kernel", "blind_rotate_fused_wide_pipe"
                               [_PTR] * 4 + [_INT] * 8 + [ctypes.c_uint, _INT, _INFO, _PTR])
 COLS_KERNEL = CudaKernel("cols_kernel", "blind_rotate_fused_cols",
                          [_PTR] * 4 + [_INT] * 9 + [_INFO, _PTR])
+#: the whole-scan kernels redesigned on Kernel B's contraction (mma_row.cuh),
+#: whose wrappers refuse any N but MMA_DEGREES before a launch
+MMA_KINDS = ("wide_pipe", "cols")
+MMA_DEGREES = (64, 128, 256, 512)
 #: the launch plan of each kernel's last launch, by C symbol: samples per
 #: CTA, threads per CTA, dynamic shared memory bytes, CTAs (and for Kernel G
 #: the clusters the card holds at once)
 last_plan: dict = {}
-
-
-def _pad(j: int) -> int:
-    return j + (j >> 3)
 
 
 def smem_bytes(kind: str, params: TfheParams, spc: int) -> int:
@@ -79,19 +82,26 @@ def smem_bytes(kind: str, params: TfheParams, spc: int) -> int:
     symbol's suffix: 'fused', 'pipe', 'wide_pipe' or 'cols'."""
     c, n, levels = params.glwe_dimension + 1, params.degree, params.pbs_decomposer.levels
     r = c * levels
-    row = 4 * _pad(2 * n)  # one staged row w(+-g)
+    # Kernels B, F and G: two sets of 16 byte-shifted limb-plane copies
+    # (limb_planes.cuh:copy_words) and two raw key rows; digit rows padded by
+    # 16 bytes (digit_row_bytes)
+    planes = 2 * 4 * 16 * (n // 2 + 8) + 2 * 4 * n
+    drow = n + 16
     if kind == "fused":
-        # accumulators, two sets of 16 byte-shifted limb-plane copies
-        # (limb_planes.cuh:copy_words), two raw key rows, the digit rows
-        # padded by 16 bytes, the exponents
-        return (4 * spc * c * n + 2 * 4 * 16 * (n // 2 + 8) + 2 * 4 * n
-                + r * spc * (n + 16) + 4 * spc)
+        # accumulators, planes, the digits, the exponents
+        return 4 * spc * c * n + planes + r * spc * drow + 4 * spc
     if kind == "pipe":
-        return 4 * spc * c * n + 2 * spc * r * n + row + 4 * 2 * spc
+        # accumulators, digits of two steps, one staged row w(+-g) of 2N
+        # words with one padding word in nine, exponents of two steps
+        return 4 * spc * c * n + 2 * spc * r * n + 4 * (2 * n + (2 * n >> 3)) + 4 * 2 * spc
     if kind == "wide_pipe":
-        return 4 * 2 * r * (n + n // 8) + 4 * spc * c * n + 2 * spc * r * n + 4 * 2 * spc
+        # accumulators, planes, a ring of 2C-1 poly slots of digits, exponents
+        # of two steps
+        return 4 * spc * c * n + planes + (2 * c - 1) * levels * spc * drow + 4 * 2 * spc
     if kind == "cols":
-        return 4 * spc * n + 2 * spc * levels * n + spc * r * n + row + 4 * spc
+        # one accumulator plane, planes, own digits of two step parities,
+        # the gathered digits, the exponents
+        return 4 * spc * n + planes + 2 * levels * spc * drow + r * spc * drow + 4 * spc
     raise ValueError(f"unknown whole-scan kernel {kind!r}")
 
 
@@ -146,15 +156,18 @@ def _launch(kernel: CudaKernel, kind: str, params: TfheParams, acc0: torch.Tenso
     """Check the operands, pick the samples per CTA and launch ``kernel``
     with arguments (pointers, shape, decomposer, *mode, spc, info, stream)."""
     device = acc0.device
+    b, k1, n = acc0.shape
+    if kind in MMA_KINDS and n not in MMA_DEGREES:
+        raise ValueError(f"{kernel.symbol} takes N a power of two from 64 to 512 (Kernel B's "
+                         f"tensor-core tiles), got N={n}")
     if device.type != "cuda":
         raise ValueError(f"{kernel.symbol} runs on CPU or CUDA tensors, got {device}")
-    b, k1, n = acc0.shape
     steps = bk_u32.shape[0]
     dp = params.pbs_decomposer
     check_cuda_operand("acc0", acc0, torch.int32, (b, k1, n), device)
     check_cuda_operand("bk_u32", bk_u32, torch.int32, (steps, k1 * dp.levels, k1, n), device)
     check_cuda_operand("a_hat", a_hat, torch.int32, (steps, b), device)
-    if kind in ("fused", "wide_pipe") and bk_u32.data_ptr() % 16:
+    if kind in ("fused", *MMA_KINDS) and bk_u32.data_ptr() % 16:
         raise ValueError(f"bk_u32 must be 16-byte aligned ({kernel.symbol} copies it in 16-byte "
                          "pieces)")
     budget = smem_budget(device)
@@ -199,9 +212,9 @@ def blind_rotate_fused_pipe(params: TfheParams, acc0: torch.Tensor, bk_u32: torc
 
 def blind_rotate_fused_wide_pipe(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Tensor,
                                  a_hat: torch.Tensor, balanced: bool = False) -> torch.Tensor:
-    """Kernel F: as ``blind_rotate_fused`` with the exact key, each column's
-    whole key block staged by async copy under the previous column.  (The
-    JAX function's ``key_limbs`` is left out: no impl sets it.)"""
+    """Kernel F: as ``blind_rotate_fused`` with the exact key, each poly's
+    next-step digits built under the next column's contraction.  (The JAX
+    function's ``key_limbs`` is left out: no impl sets it.)"""
     if _on_cpu(acc0, bk_u32, a_hat):
         return blind_rotate_fused_wide_pipe_ref(params, acc0, bk_u32, a_hat, balanced)
     return _launch(WIDE_PIPE_KERNEL, "wide_pipe", params, acc0, bk_u32, a_hat, int(balanced),
