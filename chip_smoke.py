@@ -11,7 +11,7 @@ failure, so the script exits nonzero and prints no result line.
   0. require CUDA; print the card, its power limit, torch and CUDA versions;
   1. build the kernels, all nvcc processes at once (one per source, eight),
      with the build seconds and ptxas' resource report, and count the IMMA
-     (integer tensor-core) instructions of Kernels A, H, B, F and G with
+     (integer tensor-core) instructions of Kernels A, H, B, E, F and G with
      ``cuobjdump -sass``: there must be some in each;
   2. hold each kernel against its plain PyTorch twin (``torch.equal``) at
      nano, test_insecure and a 16-step slice of the default_128 key (Kernel C
@@ -55,9 +55,10 @@ failure, so the script exits nonzero and prints no result line.
   4. time 'fusedb' at B=1024 with CUDA events, with the SM clock sampled by
      nvidia-smi meanwhile (``scripts/measure_torch.py:sampled_clocks``), then
      Kernel B against its twin at the main path's shape, then Kernels B
-     ('fusedb', 'fusedb3'), F ('fusedwb') and G ('fusedc') alone over the
-     whole key at B = 8, 64, 256, 1024 and 2048, in turns, each with its
-     plan, its waves, its SM clock, its twin and its bound, then the
+     ('fusedb', 'fusedb3'), E ('fusedp', 'fusedp3'), F ('fusedwb') and G
+     ('fusedc') alone over the whole key at B = 8, 64, 256, 1024 and 2048,
+     in turns, each with its plan, its waves, its SM clock, its twin and
+     its bound, then the
      small-batch gates, the 8-bit add, Kernel C against its twin at B=1,
      B=8 (V=1) and B=4 (V=3), then
      the 'nttf' gate at B=1024 with the SM clock sampled, Kernel D against
@@ -472,6 +473,8 @@ def time_contractions(epk, sk, params, rng, dev, card, graph_ms, bk_to_matmul_w)
 #: impl -> (kernel, wrapper name, options, key limbs)
 ALONE = {"fusedb": ("B", "blind_rotate_fused", {"balanced": True}, 4),
          "fusedb3": ("B", "blind_rotate_fused", {"balanced": True, "key_limbs": 3}, 3),
+         "fusedp": ("E", "blind_rotate_fused_pipe", {}, 4),
+         "fusedp3": ("E", "blind_rotate_fused_pipe", {"key_limbs": 3}, 3),
          "fusedwb": ("F", "blind_rotate_fused_wide_pipe", {"balanced": True}, 4),
          "fusedc": ("G", "blind_rotate_fused_cols", {}, 4)}
 
@@ -489,9 +492,9 @@ def waves(plan: dict, c: int, dev) -> int:
 
 
 def time_alone(brk, sk, params, rng, dev, card, sampled_clocks) -> dict:
-    """Phase 4: Kernels B ('fusedb', 'fusedb3'), F ('fusedwb') and G
-    ('fusedc') alone over the whole key (722 steps) at each of
-    KERNEL_B_BATCHES, in turns on the same random accumulators and
+    """Phase 4: Kernels B ('fusedb', 'fusedb3'), E ('fusedp', 'fusedp3'), F
+    ('fusedwb') and G ('fusedc') alone over the whole key (722 steps) at
+    each of KERNEL_B_BATCHES, in turns on the same random accumulators and
     exponents: each one's time (mean of 2 back to back after a warm-up,
     CUDA events) with the SM clock sampled meanwhile, its plan and waves,
     its twin's time and max_abs_err, and its bound (int8 multiply-adds of
@@ -549,7 +552,7 @@ def phase2_whole_scan(brk, get_params, to_torch_u32, params, sk, dev) -> None:
     """Kernel B at key_limbs=3 and Kernels E, F and G against their twins in
     every mode: random keys at nano and test_insecure, the same with every
     low byte 0x80 (the truncated key's hard case) and with every byte 0x80
-    (the limb -128, which the tensor-core kernels B, F and G must not
+    (the limb -128, which the tensor-core kernels B, E, F and G must not
     negate), and a 16-step slice of the default_128 key."""
     rng = np.random.default_rng(7)
     cases = [(name, b, "random") for name, bs in (("nano", (1, 3, 8)),
@@ -629,8 +632,8 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels = (epk.KERNEL, brk.KERNEL, latk.KERNEL, nttk.KERNEL, brk.PIPE_KERNEL,
                brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL, epk.BATCH_KERNEL)
-    phase1(kernels, (epk.KERNEL, epk.BATCH_KERNEL, brk.KERNEL, brk.WIDE_PIPE_KERNEL,
-                     brk.COLS_KERNEL))
+    phase1(kernels, (epk.KERNEL, epk.BATCH_KERNEL, brk.KERNEL, brk.PIPE_KERNEL,
+                     brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL))
     t0 = time.perf_counter()
     budget = smem_budget(dev)
     budget_us = (time.perf_counter() - t0) * 1e6
@@ -819,7 +822,8 @@ def main() -> int:
     log(f"  blind_rotate_fused fusedb [B={MAIN_B}, n={params.n}]: kernel {bk_ms:.2f} ms, "
         f"plain {bk_plain_ms:.2f} ms, max_abs_err {bk_err}; plan {bk_plan}; card: {card}")
     require(bk_err == 0, "Kernel B disagrees with its twin at the main path's shape")
-    log(f"phase 4: Kernels B (fusedb, fusedb3), F (fusedwb) and G (fusedc) alone at B = "
+    log(f"phase 4: Kernels B (fusedb, fusedb3), E (fusedp, fusedp3), F (fusedwb) and G (fusedc) "
+        f"alone at B = "
         f"{', '.join(map(str, KERNEL_B_BATCHES))} (CUDA events)")
     alone = time_alone(brk, sk, params, rng, dev, card, sampled_clocks)
 
@@ -973,7 +977,7 @@ def main() -> int:
     # variants path are fused3's and fusedb3's), Kernels E, F and G
     for name, symbol, source, line, kernel in (
             ("blind_rotate_fused_k3", "blind_rotate_fused", "blind_rotate_kernel", 862, None),
-            ("blind_rotate_fused_pipe", "blind_rotate_fused_pipe", "pipe_kernel", 793, None),
+            ("blind_rotate_fused_pipe", "blind_rotate_fused_pipe", "pipe_kernel", 793, "E"),
             ("blind_rotate_fused_wide_pipe", "blind_rotate_fused_wide_pipe",
              "wide_pipe_kernel", 723, "F"),
             ("blind_rotate_fused_cols", "blind_rotate_fused_cols", "cols_kernel", 664, "G")):

@@ -21,11 +21,12 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
   * Kernels E, F and G (``blind_rotate_fused_pipe``, ``_wide_pipe``,
     ``_cols``) alone at B = 8 .. 2048 and Kernel B at key_limbs=3 at
     B=1024, with their launch plans;
-  * where the time of Kernels B, F and G goes at B=1024: each kernel built
-    again with its plane build, its row barrier, its digit phase, (F) the
-    digit builds it runs under the next column's mmas or (G) its gather cut
-    out of a copy of its sources (``CUTS``), timed in turns with the whole
-    kernel;
+  * where the time of Kernels B, E, F and G goes at B=1024: each kernel
+    built again with its plane build, its row barrier, its digit phase, (F)
+    the digit builds it runs under the next column's mmas, (G) its gather or
+    (E) its producers' work, its consumers' mmas or their waits cut out of a
+    copy of its sources (``CUTS``), and E with 2 or 8 producer warps in
+    place of 4, timed in turns with the whole kernel;
   * one NAND gate per impl: fusedb, fused and nttf at B=1024, auto (Kernel A)
     at B=64 and B=1024, conv (Kernel H) and matmul (plain) at B=64, the
     small-batch impls fusedl, bmmpl, bmmp and fusedb at B <= 64, and nttf,
@@ -68,11 +69,12 @@ SCHEDULES = (("kernelE_fusedp", "blind_rotate_fused_pipe", {}),
              ("kernelG_fusedc", "blind_rotate_fused_cols", {}))
 PROFILED = (("fusedb", 1024), ("fusedb3", 1024), ("nttf", 1024), ("auto", 64), ("conv", 64),
             ("bmmp", 64), ("fusedl", 1))
-#: The phases of the tensor-core whole-scan kernels B, F and G, cut out of
-#: copies of their sources (the kernel's .cu and the shared csrc/*.cuh) to
+#: The phases of the tensor-core whole-scan kernels B, E, F and G, cut out
+#: of copies of their sources (the kernel's .cu and the shared csrc/*.cuh) to
 #: time what each costs: kernel -> cut name -> (text, replacement) pairs,
-#: each text found once in those sources.  A cut kernel's results are wrong;
-#: only its time is read.
+#: each text found once in those sources.  A cut kernel's results are wrong
+#: and only its time is read, but for EXACT_CUTS, which must equal the
+#: whole kernel's.
 _NO_BUILD = ("if (j0 == 0 && graw_next != nullptr)", "if (false)")  # mma_row.cuh
 _NO_BARRIER = ("        cp_async_commit_wait();\n        __syncthreads();\n",
                "        cp_async_commit_wait();\n")  # B's and F's row barrier
@@ -84,6 +86,18 @@ _NO_PIPELINED_DIGITS = ("planes + ((q + 1) & 1) * ps, next_digits);",
                         "planes + ((q + 1) & 1) * ps);")  # F's in-row builds
 _NO_GATHER = ("      reinterpret_cast<uint4*>(dig + pp * blk)[v] =",
               "      if (idx < 0) reinterpret_cast<uint4*>(dig + pp * blk)[v] =")
+# Kernel E: its producers' plane build and digit jobs, its consumers' mmas,
+# their waits for the planes and the producers' row loop; its producer warps
+# (2: no setmaxnreg, 320 threads; 8: two warpgroups, 512 threads)
+_E_NO_BUILD = ("build_kept_planes<L>(graw + (q & 1) * N",
+               "if (false) build_kept_planes<L>(graw + (q & 1) * N")
+_E_NO_DIGITS = ("digits(st, p, (q - lo) * chunk", "if (false) digits(st, p, (q - lo) * chunk")
+_E_NO_MMA = ("mma_row<L, T>(sums, planes + b * ps",
+             "if (false) mma_row<L, T>(sums, planes + b * ps")
+_E_NO_WAIT = ("mbar_wait(full + b, ", "if (false) mbar_wait(full + b, ")
+_E_NO_PRODUCERS = ("for (int q = 0; q < rows; ++q) {", "for (int q = 0; q < 0; ++q) {")
+_E_PRODUCERS = {n: ("constexpr int kProducerWarps = 4;", f"constexpr int kProducerWarps = {n};")
+                for n in (2, 8)}
 CUTS = {
     "B": {"no plane build": (_NO_BUILD,),
           "no plane build, no row barrier": (_NO_BUILD, _NO_BARRIER),
@@ -97,7 +111,15 @@ CUTS = {
           "no digit phase": (_NO_DIGITS,),
           "no gather": (_NO_GATHER,),
           "mma loop alone": (_NO_BUILD, _NO_BARRIER_G, _NO_DIGITS, _NO_GATHER)},
+    "E": {"no plane build": (_E_NO_BUILD,),
+          "no digit work": (_E_NO_DIGITS,),
+          "no producer work": (_E_NO_BUILD, _E_NO_DIGITS),
+          "producers alone": (_E_NO_MMA,),
+          "mma loop alone": (_E_NO_WAIT, _E_NO_PRODUCERS),
+          "2 producer warps": (_E_PRODUCERS[2],),
+          "8 producer warps": (_E_PRODUCERS[8],)},
 }
+EXACT_CUTS = {("E", "2 producer warps"), ("E", "8 producer warps")}
 SUBPARTITIONS_PER_SM = 4  # each with its own tensor core
 
 
@@ -219,17 +241,20 @@ def dp4a_per_sample_step(p) -> int:
 
 
 def kernel_cuts(brk, p, acc0, bk, a_hat) -> dict:
-    """The ms of Kernels B, F and G with each of their CUTS (copies built
+    """The ms of Kernels B, E, F and G with each of their CUTS (copies built
     into build/tfhe_tpu_torch/kernel_cuts/, all nvcc processes at once), in
     turns with the whole kernel (whole, cuts, whole), 2 rounds each: Kernel
-    B at 'fusedb' and 'fusedb3', F at 'fusedwb', G at 'fusedc'."""
+    B at 'fusedb' and 'fusedb3', E at 'fusedp' and 'fusedp3', F at
+    'fusedwb', G at 'fusedc'.  Each cut's ptxas report is kept, and each of
+    EXACT_CUTS is held equal to the whole kernel."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
     from tfhe_tpu_torch.ops.cuda import _build
     from tfhe_tpu_torch.ops.decomposer import balanced_offset
 
-    whole = {"B": brk.KERNEL, "F": brk.WIDE_PIPE_KERNEL, "G": brk.COLS_KERNEL}
+    whole = {"B": brk.KERNEL, "E": brk.PIPE_KERNEL, "F": brk.WIDE_PIPE_KERNEL,
+             "G": brk.COLS_KERNEL}
     out = _build.BUILD_DIR / "kernel_cuts"
 
     def build(job):
@@ -253,6 +278,7 @@ def kernel_cuts(brk, p, acc0, bk, a_hat) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the cut {tag} {name!r}:\n{proc.stderr}")
         cut = _build.CudaKernel(kernel.source, kernel.symbol, kernel.argtypes)
+        cut.ptxas_report = proc.stderr
         cut._lib = ctypes.CDLL(str(lib))
         cut._fn = getattr(cut._lib, cut.symbol)
         cut._fn.argtypes, cut._fn.restype = cut.argtypes, ctypes.c_int
@@ -265,15 +291,26 @@ def kernel_cuts(brk, p, acc0, bk, a_hat) -> dict:
         built = dict(pool.map(build, jobs))
     offset = balanced_offset(p.pbs_decomposer)
     runs = (("B", "fusedb", "fused", (1, offset, 4)), ("B", "fusedb3", "fused", (1, offset, 3)),
+            ("E", "fusedp", "pipe", (4,)), ("E", "fusedp3", "pipe", (3,)),
             ("F", "fusedwb", "wide_pipe", (1, offset)), ("G", "fusedc", "cols", (4,)))
-    res = {}
+    res = {f"{tag} {name} ptxas": [ln.strip() for ln in cut.ptxas_report.splitlines()
+                                   if "registers" in ln or "spill" in ln]
+           for (tag, name), cut in built.items()}
     for tag, mode, kind, args in runs:
         kernels = {"whole": whole[tag], **{name: built[tag, name] for name in CUTS[tag]}}
+        want = brk._launch(whole[tag], kind, p, acc0, bk, a_hat, *args)
         for name in [*kernels, "whole"]:
-            t = event_rounds(lambda: brk._launch(kernels[name], kind, p, acc0, bk, a_hat, *args),
-                             2)
+            def run():
+                return brk._launch(kernels[name], kind, p, acc0, bk, a_hat, *args)
+            t = event_rounds(run, 2)
             res.setdefault(f"{mode} {name}", []).extend(t)
             log(f"Kernel {tag} {mode} B=1024, {name}: ms {t}")
+            if (tag, name) in EXACT_CUTS:
+                equal = torch.equal(run(), want)
+                res[f"{mode} {name} equals whole"] = equal
+                log(f"Kernel {tag} {mode} B=1024, {name}: equal to the whole kernel: {equal}")
+                if not equal:
+                    raise RuntimeError(f"Kernel {tag} with {name!r} differs from the whole kernel")
     return res
 
 
@@ -424,7 +461,7 @@ def main() -> int:
     t = event_rounds(lambda: brk.blind_rotate_fused(p, acc0, sk.bk_u32, a_hat, True, 3), 3)
     res["kernelB_fusedb3_B1024_ms"] = t
     log(f"Kernel B fusedb3 (key_limbs=3) B=1024: ms {t}")
-    res["kernels_BFG_B1024_cuts_ms"] = kernel_cuts(brk, p, acc0, sk.bk_u32, a_hat)
+    res["kernels_BEFG_B1024_cuts_ms"] = kernel_cuts(brk, p, acc0, sk.bk_u32, a_hat)
 
     for impl, b in GATES:
         t = event_rounds(lambda: tfhe.gates.nand(sk, ca[:b], cb[:b], impl=impl),

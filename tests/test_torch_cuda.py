@@ -523,8 +523,8 @@ def test_whole_scan_kernels_refuse_shapes_over_the_budget_on_card(cuda_device, m
     """A shape whose one sample passes the card's shared-memory budget raises
     ValueError before any launch, and the twin does not stand in: at
     test_insecure against a budget one byte short of one sample, and for
-    Kernel F also at large_2048, which it refuses by its degree (N from 64
-    to 512) before it sizes anything."""
+    Kernels E and F also at large_2048, which they refuse by its degree (N
+    from 64 to 512) before they size anything."""
     fn, _, options, kernel = WHOLE_SCAN[impl]
     for name in ("blind_rotate_fused_ref", "blind_rotate_fused_pipe_ref",
                  "blind_rotate_fused_wide_pipe_ref", "blind_rotate_fused_cols_ref"):
@@ -537,7 +537,7 @@ def test_whole_scan_kernels_refuse_shapes_over_the_budget_on_card(cuda_device, m
         m.setattr(brk, "smem_budget", lambda device: brk.smem_bytes(kind, p, 1) - 1)
         with pytest.raises(ValueError, match="shared memory"):
             fn(p, acc0, bk, a_hat, **options)
-    if impl == "fusedw":
+    if impl in ("fusedp", "fusedw"):
         big = get_params("large_2048")
         with pytest.raises(ValueError, match="from 64 to 512"):
             fn(big, *whole_scan_inputs(big, 1, 64, cuda_device, steps=1), **options)
@@ -564,11 +564,11 @@ def test_whole_scan_kernels_match_twins_at_fewer_samples_per_cta_on_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("impl", ["fusedw", "fusedwb", "fusedc", "fusedc3"])
+@pytest.mark.parametrize("impl", ["fusedp", "fusedp3", "fusedw", "fusedwb", "fusedc", "fusedc3"])
 @pytest.mark.parametrize("name,batch", [("nano", 9), ("test_insecure", 9)])
 def test_mma_whole_scan_kernels_match_twins_on_all_0x80_key_on_card(cuda_device, impl, name,
                                                                     batch):
-    """Kernels F and G on a key whose every byte is 0x80: every limb of the
+    """Kernels E, F and G on a key whose every byte is 0x80: every limb of the
     sign-twisted words is -128 or its neighbour, where negating a limb
     instead of the word would be wrong."""
     fn, twin, options, kernel = WHOLE_SCAN[impl]
@@ -585,9 +585,9 @@ def test_mma_whole_scan_kernels_match_twins_on_all_0x80_key_on_card(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("impl", ["fusedw", "fusedc"])
+@pytest.mark.parametrize("impl", ["fusedp", "fusedw", "fusedc"])
 def test_mma_whole_scan_kernels_refuse_other_degrees_on_card(cuda_device, monkeypatch, impl):
-    """Kernels F and G take Kernel B's degrees, N a power of two from 64 to
+    """Kernels E, F and G take Kernel B's degrees, N a power of two from 64 to
     512: N=32 and large_2048's N=2048 raise ValueError before any launch,
     and the twin does not stand in."""
     fn, twin, options, kernel = WHOLE_SCAN[impl]
@@ -605,10 +605,10 @@ def test_mma_whole_scan_kernels_refuse_other_degrees_on_card(cuda_device, monkey
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", [brk.KERNEL, brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL],
-                         ids=["B", "F", "G"])
+@pytest.mark.parametrize("kernel", [brk.KERNEL, brk.PIPE_KERNEL, brk.WIDE_PIPE_KERNEL,
+                                    brk.COLS_KERNEL], ids=["B", "E", "F", "G"])
 def test_mma_whole_scan_kernels_hold_imma_on_card(cuda_device, kernel):
-    """Kernels B, F and G compute their sums on the int8 tensor cores: their
-    libraries hold IMMA instructions (cuobjdump -sass)."""
+    """Kernels B, E, F and G compute their sums on the int8 tensor cores:
+    their libraries hold IMMA instructions (cuobjdump -sass)."""
     kernel.load()
     assert _build.imma_count(kernel.path) > 0

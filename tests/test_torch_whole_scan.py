@@ -407,6 +407,197 @@ def test_kernel_f_digit_ring_replay_matches_twin(nano_case, balanced):
 
 
 # ---------------------------------------------------------------------------
+# Kernel E's producer and consumer warps, replayed
+# ---------------------------------------------------------------------------
+
+
+def pipe_job_rows(job, c_cols, levels, plane_bufs):
+    """``pipe_kernel.cu:job_rows``: the rows lo..hi of the (step, c, r)
+    sequence in which the producers build digit job st*C + p (poly p of
+    step st >= 1): from plane_bufs rows after the last row e of column p of
+    step st-1 to the row before the first that reads it (row p*levels of
+    column 0 of step st), and at most R rows after e."""
+    rows = c_cols * levels
+    st, p = divmod(job, c_cols)
+    e = ((st - 1) * c_cols + p) * rows + rows - 1
+    f = st * c_cols * rows + p * levels
+    hi = min(f - 1, e + rows)
+    return min(e + plane_bufs, hi), hi
+
+
+def pipe_schedule(c_cols, levels, steps, plane_bufs):
+    """Kernel E's two roles as ``pipe_kernel.cu`` runs them: (prologue,
+    producers, consumers), each a list of operations in program order:
+      ('wait', barrier, parity) - until the barrier's phase of that parity
+        has completed; ('arrive', barrier) - one arrival (each role counts as
+        one party: every barrier waits for the whole of one role);
+      ('plane', q, buf) - the producers build row q's planes into a buffer;
+      ('build', step, poly, slot, chunk, chunks) - digits of poly at step,
+        chunk of chunks, into a ring slot, reading accumulator plane poly;
+      ('row', step, c, r, buf, slot) - the consumers' mmas on row r of
+        column c: planes from buf, digits from the slot of poly r // levels;
+      ('column', step, c) - column c's sums added to accumulator plane c.
+    Barriers: ('full', b), ('empty', b) per plane buffer and ('column', c).
+    No barrier says a slot is filled: a poly's last chunk is built before
+    the planes of the first row that reads it.  Step 0's digits are the
+    prologue's."""
+    rows = c_cols * levels
+    nslots, jobs, total = 2 * c_cols - 1, steps * c_cols, steps * c_cols * rows
+    prologue = [("build", 0, p, p, 0, 1) for p in range(c_cols)] if steps else []
+    prod = []
+    job = c_cols
+    lo, hi = pipe_job_rows(job, c_cols, levels, plane_bufs) if job < jobs else (0, -1)
+    for q in range(total):
+        b, use = q % plane_bufs, q // plane_bufs
+        prod += [("wait", ("empty", b), (use & 1) ^ 1), ("plane", q, b), ("arrive", ("full", b))]
+        if job < jobs and q >= lo:
+            st, p = divmod(job, c_cols)
+            if q == lo:
+                prod.append(("wait", ("column", p), (st - 1) & 1))
+            prod.append(("build", st, p, job % nslots, q - lo, hi - lo + 1))
+            if q == hi:
+                job += 1
+                if job < jobs:
+                    lo, hi = pipe_job_rows(job, c_cols, levels, plane_bufs)
+    cons = []
+    q = 0
+    for step in range(steps):
+        for c in range(c_cols):
+            for r in range(rows):
+                b, slot = q % plane_bufs, (step * c_cols + r // levels) % nslots
+                cons += [("wait", ("full", b), (q // plane_bufs) & 1),
+                         ("row", step, c, r, b, slot), ("arrive", ("empty", b))]
+                q += 1
+            cons += [("column", step, c), ("arrive", ("column", c))]
+    return prologue, prod, cons
+
+
+def run_pipe(schedule, policy):
+    """Run the two roles of ``pipe_schedule`` over phase-parity barriers
+    (a wait on parity P passes once the barrier's completed phases k have
+    k mod 2 != P), choosing which role steps while both can: 'producers'
+    or 'consumers' first, or at random from a seed.  Returns the
+    operations in the order they ran; fails on a deadlock."""
+    prologue, *roles = schedule
+    done = {}  # barrier -> completed phases
+    pos = [0, 0]
+    order = list(prologue)
+    rng = np.random.default_rng(policy) if isinstance(policy, int) else None
+
+    def ready(who):
+        if pos[who] == len(roles[who]):
+            return False
+        op = roles[who][pos[who]]
+        return op[0] != "wait" or done.get(op[1], 0) % 2 != op[2]
+
+    while pos[0] < len(roles[0]) or pos[1] < len(roles[1]):
+        can = [who for who in (0, 1) if ready(who)]
+        assert can, f"deadlock at producers {pos[0]}, consumers {pos[1]}"
+        if rng is not None:
+            who = can[rng.integers(len(can))]
+        else:
+            who = can[0] if policy == "producers" else can[-1]
+        op = roles[who][pos[who]]
+        pos[who] += 1
+        if op[0] == "arrive":
+            done[op[1]] = done.get(op[1], 0) + 1
+        elif op[0] != "wait":
+            order.append(op)
+    return order
+
+
+@pytest.mark.parametrize("c_cols", [1, 2, 3])
+def test_kernel_e_pipe_schedule(c_cols):
+    """Over 3 steps, with the producers as far ahead as the barriers let
+    them, as far behind, and in 20 random interleavings: no plane buffer or
+    digit slot is written while a read of its old content is still to come;
+    every row's mmas read their own row's planes and the complete digits of
+    their own step; poly p of step s+1 is built only after column p of step
+    s is in its accumulator plane, and column p of step s+1 adds to that
+    plane only after every chunk of it is built; every column of every step
+    reads all R rows.  No interleaving deadlocks."""
+    levels, steps, plane_bufs = 6, 3, 3
+    rows = c_cols * levels
+    schedule = pipe_schedule(c_cols, levels, steps, plane_bufs)
+    for policy in ("producers", "consumers", *range(20)):
+        planes = {}  # buffer -> row whose planes it holds
+        slots = {}  # slot -> [(step, poly), chunks built, chunks]
+        reads = {}  # (step, poly) -> rows read of its digits
+        rows_read = {}  # (step, c) -> rows read
+        done = set()  # (step, c) columns in their accumulator plane
+        read = set()  # rows whose mmas have run
+        for op in run_pipe(schedule, policy):
+            if op[0] == "plane":
+                _, row, buf = op
+                assert buf not in planes or planes[buf] in read  # its old row is read
+                planes[buf] = row
+            elif op[0] == "build":
+                _, st, p, slot, chunk, chunks = op
+                assert st == 0 or (st - 1, p) in done  # its input is final
+                assert (st, p) not in done  # and not yet updated again
+                held = slots.get(slot)
+                if held is None or held[0] != (st, p):
+                    # the old digits have no read to come
+                    assert held is None or reads.get(held[0], 0) == c_cols * levels
+                    slots[slot] = held = [(st, p), set(), chunks]
+                held[1].add(chunk)
+            elif op[0] == "row":
+                _, st, c, r, buf, slot = op
+                index = (st * c_cols + c) * rows + r
+                assert planes[buf] == index  # its own planes
+                content, built, chunks = slots[slot]
+                assert content == (st, r // levels) and built == set(range(chunks))
+                read.add(index)
+                reads[content] = reads.get(content, 0) + 1
+                rows_read.setdefault((st, c), set()).add(r)
+            else:
+                _, st, c = op
+                assert rows_read[st, c] == set(range(rows))
+                content, built, chunks = slots[(st * c_cols + c) % (2 * c_cols - 1)]
+                assert content == (st, c) and built == set(range(chunks))
+                done.add((st, c))
+        assert rows_read == {(s, c): set(range(rows)) for s in range(steps)
+                             for c in range(c_cols)}
+        assert len(done) == steps * c_cols
+
+
+@pytest.mark.parametrize("key_limbs", [4, 3])
+def test_kernel_e_pipe_replay_matches_twin(nano_case, key_limbs):
+    """``pipe_schedule`` run on the twin's step functions at nano (one CTA
+    of 8 samples: chunk j of J builds coefficients [j*m, (j+1)*m) of the
+    8*N, m = ceil(8N/J) rounded up to a multiple of 4, as the kernel's
+    threads take 4 coefficients each), in a random interleaving of the two
+    roles, equals ``blind_rotate_fused_pipe_ref``."""
+    p, acc0_np, bk_np, a_hat_np, _ = nano_case
+    dp = p.pbs_decomposer
+    k1, n, levels = p.glwe_dimension + 1, p.degree, dp.levels
+    acc0, bk = to_torch_u32(acc0_np), to_torch_u32(bk_np)
+    a_hat = torch.from_numpy(a_hat_np)
+    b, steps = acc0.shape[0], bk.shape[0]
+    acc = acc0.clone()
+    ring = torch.zeros((2 * k1 - 1, levels, b * n), dtype=torch.int8)
+    sums = None
+    for op in run_pipe(pipe_schedule(k1, levels, steps, 3), 7):
+        if op[0] == "build":
+            _, step, poly_, slot, chunk, chunks = op
+            plane = acc[:, poly_]
+            digits = decompose_signed_planes(monomial_mul(plane, a_hat[step]) - plane, dp)
+            size = -(-b * n // (4 * chunks)) * 4
+            items = slice(chunk * size, min(b * n, (chunk + 1) * size))
+            ring[slot][:, items] = digits.reshape(levels, b * n)[:, items]
+        elif op[0] == "row":
+            _, step, c, r, _, slot = op
+            drow = ring[slot][r % levels].reshape(b, 1, n)
+            part = poly.ep_contract_matmul(drow, bk[step, r:r + 1], key_limbs)[:, 4 * c:4 * c + 4]
+            sums = part if r == 0 else sums + part
+        elif op[0] == "column":
+            _, step, c = op
+            acc[:, c] = acc[:, c] + poly.ep_combine(sums, 1)[:, 0]
+    want = brk.blind_rotate_fused_pipe_ref(p, acc0, bk, a_hat, key_limbs)
+    assert torch.equal(acc, want)
+
+
+# ---------------------------------------------------------------------------
 # nano: each twin against its Pallas kernel in interpret mode
 # ---------------------------------------------------------------------------
 
@@ -533,18 +724,25 @@ H100_OPTIN = 232448  # bytes of opt-in shared memory per block on an H100
 
 
 @pytest.mark.parametrize("kind,bytes_at_8,on_h100", [
-    ("fused", 163104, 8), ("pipe", 201280, 8), ("wide_pipe", 213824, 8), ("cols", 181024, 8)])
+    ("fused", 163104, 8), ("pipe", 230808, 8), ("wide_pipe", 213824, 8), ("cols", 181024, 8)])
 def test_samples_per_cta_on_h100_budget(kind, bytes_at_8, on_h100):
     """At default_128 every kernel keeps 8 samples per CTA, so each tensor-core
     kernel fills the mma's 8 sample columns: F's ring of 2C-1 = 5 digit
     slots fits beside its accumulators, plane buffers and raw rows, where
-    2C = 6 would not (239,168 bytes)."""
+    2C = 6 would not (239,168 bytes).  Kernel E keeps the same ring beside
+    three plane buffers: 49,152 bytes of accumulators (8*3*512 words),
+    3 * 16,896 of planes (16 copies of 264 words), 2 * 2,048 of raw rows,
+    5 * 25,344 of digits (6 rows of 8 * 528 bytes), 8 * 11 of mbarriers
+    (full and empty for 3 buffers, 2 raw rows, 3 columns) and 64 of
+    exponents: 230,808 of the 232,448."""
     p = t_get_params("default_128")
     assert brk.smem_bytes(kind, p, 8) == bytes_at_8
     pick = _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s), H100_OPTIN)
     assert pick == on_h100
     if kind == "wide_pipe":  # one more slot would not fit
         assert bytes_at_8 + 6 * 8 * (512 + 16) == 239168 > H100_OPTIN
+    if kind == "pipe":
+        assert bytes_at_8 == 49152 + 3 * 16896 + 2 * 2048 + 5 * 25344 + 8 * 11 + 64
 
 
 def test_samples_per_cta_under_smaller_budgets():
@@ -557,7 +755,7 @@ def test_samples_per_cta_under_smaller_budgets():
     assert pick("fused", brk.smem_bytes("fused", p, 4)) == 4
     assert pick("fused", brk.smem_bytes("fused", p, 2)) == 2  # the bound is inclusive
     assert pick("fused", brk.smem_bytes("fused", p, 2) - 1) == 1
-    assert pick("pipe", 48 * 1024) == 1
+    assert pick("pipe", 48 * 1024) is None  # one sample needs 76,864 bytes
     assert pick("wide_pipe", 48 * 1024) is None  # not even one sample
     assert pick("cols", 0) is None
     # the choices are tried in the order given
@@ -566,24 +764,26 @@ def test_samples_per_cta_under_smaller_budgets():
 
 
 def test_samples_per_cta_at_larger_degrees():
-    """N=2048: Kernels B and E fit fewer samples; Kernels F and G take only
+    """N=2048: Kernel B fits fewer samples; Kernels E, F and G take only
     Kernel B's degrees (N from 64 to 512), so their wrappers refuse
     large_2048 with ValueError before any launch (as Kernel B's C entry
     point refuses it)."""
     p = t_get_params("large_2048")
     picks = {kind: _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s),
                                                H100_OPTIN)
-             for kind in ("fused", "pipe")}
-    assert picks == {"fused": 2, "pipe": 2}
+             for kind in ("fused",)}
+    assert picks == {"fused": 2}
     k1, n = p.glwe_dimension + 1, p.degree
     meta = (torch.empty((1, k1, n), dtype=torch.int32, device="meta"),
             torch.empty((1, k1 * p.pbs_decomposer.levels, k1, n), dtype=torch.int32,
                         device="meta"),
             torch.empty((1, 1), dtype=torch.int32, device="meta"))
-    for fn in (brk.blind_rotate_fused_wide_pipe, brk.blind_rotate_fused_cols):
+    for fn in (brk.blind_rotate_fused_pipe, brk.blind_rotate_fused_wide_pipe,
+               brk.blind_rotate_fused_cols):
         with pytest.raises(ValueError, match="from 64 to 512"):
             fn(p, *meta)
-    assert brk.WIDE_PIPE_KERNEL.launches == brk.COLS_KERNEL.launches == 0
+    assert brk.PIPE_KERNEL.launches == brk.WIDE_PIPE_KERNEL.launches == 0
+    assert brk.COLS_KERNEL.launches == 0
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,8 @@
 //
 // As the TPU kernel does, the product is taken as int8 limb planes on the
 // tensor cores: the contraction of one staged key row, mma_row.cuh (shared
-// with Kernels F and G), whose comment derives it.  At key_limbs=3 limb 0 is
-// not computed at all, which is whole_scan::key_word's truncation.
+// with Kernels E, F and G), whose comment derives it.  At key_limbs=3 limb 0
+// is not computed at all, which is the truncation whole_scan.cuh states.
 //
 // What bounds it on the H100: int8 tensor-core operations, R*C*L*N*N
 // multiply-adds per sample and step (L = key_limbs; 5.7e7 at default_128,
@@ -87,7 +87,7 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restric
   const int b0 = blockIdx.x * S;
   const int nb = min(S, s.B - b0);
   // the lane's place in the warp tiling (limb_planes::lane_of and
-  // add_column, which Kernels F and G call, spell out these lines; Kernel B
+  // add_column, which Kernels E, F and G call, spell out these lines; Kernel B
   // keeps them inline, which keeps its machine code as it was)
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   // the warp's first tile: warp pairs share 32T outputs, interleaved by 16

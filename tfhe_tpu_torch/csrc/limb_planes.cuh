@@ -1,7 +1,8 @@
 // The int8 tensor-core pieces shared by the contraction kernels A and H
-// (ep_contract.cuh) and the whole-scan blind rotations, Kernels B, F and G
-// (through mma_row.cuh): the mma.sync m16n8k32 s8 x s8 -> s32 wrapper,
-// cp.async, and the byte-shifted limb planes of one key row.
+// (ep_contract.cuh) and the whole-scan blind rotations, Kernels B, E, F and
+// G (through mma_row.cuh): the mma.sync m16n8k32 s8 x s8 -> s32 wrapper,
+// cp.async, and the byte-shifted limb planes of one key row (Kernel E builds
+// its own, pipe_kernel.cu:build_kept_planes).
 //
 // The negacyclic circulant of a key row g (u32 [N]) is never built.  With
 // ext = [g, -g] (u32 [2N]; the sign goes on BEFORE the balanced 8-bit limb

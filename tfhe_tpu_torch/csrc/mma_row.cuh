@@ -1,6 +1,7 @@
 // The int8 tensor-core contraction of one staged key row, shared by the
-// whole-scan kernels B (blind_rotate_kernel.cu), F (wide_pipe_kernel.cu) and
-// G (cols_kernel.cu): each keeps its own schedule around it.
+// whole-scan kernels B (blind_rotate_kernel.cu), E (pipe_kernel.cu), F
+// (wide_pipe_kernel.cu) and G (cols_kernel.cu): each keeps its own schedule
+// around it.
 //
 // The product is taken as int8 limb planes: with limb_l the balanced bytes
 // of the sign-twisted key word w = +-g,
@@ -10,8 +11,8 @@
 //   acc[c, o]  += sum_l 2^(8l) * sum_l                                     (mod 2^32)
 //
 // which is the u32 product exactly, because the limbs recombine to w mod
-// 2^32 (key_limbs = 3 leaves limb 0 out, which is whole_scan::key_word's
-// truncation).  The sums run on mma.sync m16n8k32 s8 x s8 -> s32 with the
+// 2^32 (key_limbs = 3 leaves limb 0 out, the truncation whole_scan.cuh
+// states).  The sums run on mma.sync m16n8k32 s8 x s8 -> s32 with the
 // circulant as A (M = 16 outputs o), the digits as B (N = 8 samples; with
 // fewer samples per CTA the spare columns repeat a sample and are dropped)
 // and the input coefficients m as K.  An A register holds the four bytes

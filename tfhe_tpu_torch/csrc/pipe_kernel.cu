@@ -1,167 +1,336 @@
-// Kernel E: the software-pipelined whole blind rotation in one launch.
+// Kernel E: the software-pipelined whole blind rotation in one launch, with
+// warp-specialised int8 tensor-core consumers fed by producer warps.
 //
 // Replaces: tfhe_tpu/ops/pallas/blind_rotate_kernel.py, blind_rotate_fused_pipe
-// (body _kernel_pipe): carry-chain digits, key_limbs 4 (exact) or 3 (the low
-// byte of each sign-twisted key word dropped).  The step is the one
-// whole_scan.cuh writes out.  Step s+1's digits are built while step s's
-// remaining columns contract, staged in a parity double buffer.
+// (body _kernel_pipe): carry-chain digits, key_limbs 4 (exact) or 3 (limb 0
+// of each sign-twisted key word dropped).  The step is the one
+// whole_scan.cuh writes out; the TPU kernel builds step s+1's digits while
+// step s's remaining columns contract.
 //
-// What bounds it on the H100: integer multiply-adds, R*N*C*N per sample and
-// step (1.05e13 for B=1024 over 722 steps at default_128);
-// the key streams once per step per CTA from L2 and the accumulators never
-// leave the SM.  The digit pipeline (rotation and decomposition, ~0.5% of
-// the operations) is what the TPU kernel hid under its matrix unit; here it
-// costs a barrier-separated phase of every warp in Kernel B.
+// What bounds it on the H100: int8 tensor-core operations, as for Kernel B:
+// R*C*L*N*N multiply-adds per sample and step (L = key_limbs; 42.31 ms for
+// B=1024 over 722 steps at default_128 at the 1979e12 ops/s peak).  The sums
+// are Kernel B's mma.sync contraction over the int8 limb planes
+// (mma_row.cuh).  What Kernel B spends besides, the plane build and the
+// digit phase, stops all its warps' mmas (PERF.md); here warps that issue no
+// mma do that work.  Their shared-memory traffic still slows the consumers'
+// loop, so they keep it small: wide reads, no plane of a dropped limb, one
+// 32-bit store per digit row of 4 coefficients.
 //
-// Design: the CTA's warps are split.  The consumer warps own kU=8
-// consecutive outputs of the current column for 2 samples each (S/2 groups
-// of N/8 threads; 1 sample when S=1) and contract column c of step s against
-// digit buffer s%2, one staged key row w(+-g) at a time, column by column.
-// After column c's update they arrive on named barrier "plane c".  Two
-// producer warps wait there, rotate poly c by step s+1's exponents and write
-// its digits into buffer (s+1)%2 while the consumers go on with column c+1;
-// after the last poly they arrive on barrier "digits", where the consumers
-// wait before step s+1.  So only the last column's digit work is exposed, as
-// on the TPU.  Shared memory: S*C*N u32 accumulators, 2*S*R*N int8 digits and
-// one staged row (197 KB at default_128 with S=8; the wrapper picks S in
-// {8, 4, 2, 1} from the card's opt-in budget).
+// Design: Kernel B's CTA (S samples for all n steps, their accumulators in
+// shared memory, columns one after another, key rows in the order (step, c,
+// r)) with its warps in two roles that meet only at mbarriers:
+//  - kConsumerWarps consumer warps (the N/(16T) that own outputs; the rest
+//    leave at once) run mma_row on each key row's planes and nothing else,
+//    and at a column's end add its limb sums to the accumulators;
+//  - kProducerWarps producer warps (one warpgroup) bring each key row in two
+//    rows ahead by one bulk copy (cp.async.bulk, 4N bytes, completing on an
+//    mbarrier), build the limb-plane copies the consumers read
+//    (build_kept_planes) into a ring of kPlaneBufs plane buffers, and build
+//    the next step's digits of each poly (whole_scan::rotate_decompose4)
+//    into Kernel F's ring of 2C-1 poly slots once its column is in the
+//    accumulators.
+// Digit job (st, p), poly p of step st >= 1, reads accumulator plane p as
+// column p of step st-1 left it (the last row of that column is row e) and
+// is first read at row f, row p*levels of column 0 of step st.  The
+// producers build it in chunks, one per row, over rows e+kPlaneBufs .. f-1
+// (at most e+R): a producer that has waited for a free plane buffer at row
+// e+kPlaneBufs has seen the consumers finish row e, so it rarely waits for
+// the column.  So polys 0..C-2 are built under the next column, and poly C-1
+// under the first (C-1)*levels rows of the next step, which read polys
+// 0..C-2 only: no digit work is exposed, where the TPU kernel leaves the
+// last poly's.  Poly p of step st sits in slot (st*C + p) mod (2C-1); the
+// slot it overwrites was last read by a column that is done.  Its last chunk
+// is built before row f's planes, so a consumer that has waited for those
+// finds its digits complete.
+//
+// Handshakes, each an mbarrier waited on with its phase parity: plane
+// buffer full (producers arrive) and empty (consumers), raw row landed (the
+// bulk copy's bytes) and column c in the accumulators (consumers).  A named
+// barrier among the producers per row frees the raw row and publishes the
+// step's exponents; __syncthreads runs only in the prologue.  The producers
+// give up registers (setmaxnreg) so that the consumers keep Kernel B's
+// mma_row body (180 registers at L=4) beside them: 384 threads at one CTA
+// per SM.  (2 producer warps, 320 threads and no setmaxnreg, or 8, two
+// warpgroups, are slower: PERF.md.)  Shared memory: S*C*N u32 accumulators,
+// kPlaneBufs plane buffers, two raw rows, the digit ring, the mbarriers and
+// the exponents of two steps (230,808 bytes at default_128 with S=8; the
+// wrapper picks S in {8, 4, 2, 1} from the card's opt-in budget).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "limb_planes.cuh"
+#include "mma_row.cuh"
 #include "whole_scan.cuh"
 
 namespace {
 
-using whole_scan::kU;
-using whole_scan::pad;
+using limb_planes::digit_row_bytes;
+using limb_planes::mma_row;
+using limb_planes::plane_set_words;
+using limb_planes::smem_addr;
+using limb_planes::tiles_per_warp;
 using whole_scan::Shape;
 
-constexpr int kProducers = 64;  // two producer warps
-constexpr int kMaxConsumers = 512;
-constexpr int kMaxColumns = 8;  // named barriers 4 .. 4+C-1
+constexpr int kConsumerWarps = 8;  // N/(16T) at N=512
+constexpr int kProducerWarps = 4;  // one warpgroup
+constexpr int kConsumers = 32 * kConsumerWarps, kProducers = 32 * kProducerWarps;
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kPlaneBufs = 3;
+// setmaxnreg's split of the registers a thread starts with (65536 over the
+// threads, in steps of 8: 168 of 384): the producers keep few, the
+// consumers take the rest (224 with 4 producer warps)
+constexpr int kStartRegs = 65536 / kThreads / 8 * 8;
+constexpr int kProducerRegs = kProducerWarps == 4 ? 56 : 40;
+constexpr int kConsumerRegs =
+    (kStartRegs * kThreads - kProducerRegs * kProducers) / kConsumers / 8 * 8;
 // named barriers (0 is __syncthreads)
-constexpr int kBarConsumers = 1, kBarProducers = 2, kBarDigits = 3, kBarPlane = 4;
+constexpr int kBarConsumers = 1, kBarProducers = 2;
 
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void bar_arrive(int id, int count) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
 }
 
-__host__ int consumers(const Shape& s) {
-  const int spt = s.spc == 1 ? 1 : 2;
-  return ((s.N / kU) * (s.spc / spt) + 31) / 32 * 32;
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
+      "}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One thread: `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// global to shared memory, counted on `bar` as one arrival that expects them.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 __host__ size_t smem_bytes(const Shape& s) {
-  const size_t S = s.spc, C = s.C, N = s.N, R = C * s.levels;
-  return 4 * S * C * N + 2 * S * R * N + 4 * pad(2 * s.N) + 4 * 2 * S;
+  const size_t S = s.spc, C = s.C, N = s.N, slot = s.levels * S * digit_row_bytes(s.N);
+  return 4 * S * C * N                                                 // accumulators
+         + 4 * kPlaneBufs * static_cast<size_t>(plane_set_words(s.N))  // plane buffers
+         + 4 * 2 * N                                                   // two raw key rows
+         + (2 * C - 1) * slot                                          // the digit ring
+         + 8 * (2 * kPlaneBufs + 2 + C)  // mbarriers: full and empty, raw rows, columns
+         + 4 * 2 * S;                                                  // exponents, by parity
 }
 
-template <int SPT>
-__global__ void __launch_bounds__(kMaxConsumers + kProducers, 1)
+// limb_planes::build_planes<true> for the nthr threads from tid, of the L
+// kept limbs only (4 - L .. 3, the ones mma_row reads), each thread's 7
+// words ext[j - k] (j = -4w mod 2N) read as two aligned 16-byte groups and
+// one word rather than as 7 words 4 apart across the warp (4-way bank
+// conflicts).
+template <int L>
+__device__ __forceinline__ void build_kept_planes(const uint32_t* graw, uint32_t* planes, int N,
+                                                  int tid, int nthr) {
+  const int cw = limb_planes::copy_words(N), mask2 = 2 * N - 1;
+  auto ext4 = [&](int x) {  // ext[x .. x+3] for x a multiple of 4
+    uint4 v = *reinterpret_cast<const uint4*>(graw + (x & (N - 1)));
+    if (x >= N) v = make_uint4(0u - v.x, 0u - v.y, 0u - v.z, 0u - v.w);
+    return v;
+  };
+  for (int w = tid; w < N / 2; w += nthr) {
+    const int j = (-4 * w) & mask2;
+    const uint4 a = ext4((j - 4) & mask2), c = ext4((j - 8) & mask2);
+    uint32_t e[7] = {j < N ? graw[j] : 0u - graw[j - N], a.w, a.z, a.y, a.x, c.w, c.z};
+#pragma unroll
+    for (int k = 0; k < 7; ++k) e[k] = (e[k] + 0x80808080u) ^ 0x80808080u;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      // limb l of e[s + j] -> byte j of limb word l
+      const uint32_t lo01 = __byte_perm(e[s], e[s + 1], 0x5140);
+      const uint32_t lo23 = __byte_perm(e[s + 2], e[s + 3], 0x5140);
+      const uint32_t hi01 = __byte_perm(e[s], e[s + 1], 0x7362);
+      const uint32_t hi23 = __byte_perm(e[s + 2], e[s + 3], 0x7362);
+      const uint32_t limb[4] = {__byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
+                                __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
+      uint32_t* dst = planes + s * cw + w;
+#pragma unroll
+      for (int l = 4 - L; l < 4; ++l) {
+        dst[l * 4 * cw] = limb[l];
+        if (w < 8) dst[l * 4 * cw + N / 2] = limb[l];  // the wrap copy
+      }
+    }
+  }
+}
+
+// Rows lo..hi of the (step, c, r) sequence, in which the producers build
+// digit job i = st*C + p (poly p of step st >= 1): see the header.
+__device__ __forceinline__ void job_rows(int i, int C, int R, int levels, int& lo, int& hi) {
+  const int st = i / C, p = i - st * C;
+  const int e = ((st - 1) * C + p) * R + R - 1, f = st * C * R + p * levels;
+  hi = min(f - 1, e + R);
+  lo = min(e + kPlaneBufs, hi);
+}
+
+// L: key limbs kept (4, or 3 with limb 0 dropped); T: tiles_per_warp(N).
+template <int L, int T>
+__global__ void __launch_bounds__(kThreads, 1)
 pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
             const int32_t* __restrict__ a_hat, uint32_t* __restrict__ out, Shape s) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int S = s.spc, N = s.N, C = s.C, R = C * s.levels, CN = C * N, RN = R * N;
-  const int mask2 = 2 * N - 1;
-  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);         // [S][C][N]
-  uint32_t* gext = acc + S * CN;                              // [pad(2N)]
-  int8_t* dig = reinterpret_cast<int8_t*>(gext + pad(2 * N));  // [2][S][R][N]
-  int* a_s = reinterpret_cast<int*>(dig + 2 * S * RN);        // [2][S] by step parity
+  const int S = s.spc, N = s.N, C = s.C, levels = s.levels, R = C * levels;
+  const int CN = C * N, SN = S * N, mask2 = 2 * N - 1;
+  const int ps = plane_set_words(N), drow = digit_row_bytes(N);
+  const int blk = levels * S * drow, nslots = 2 * C - 1;
+  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);                // [S][C][N]
+  uint32_t* planes = acc + S * CN;                                   // [kPlaneBufs][16 copies]
+  uint32_t* graw = planes + kPlaneBufs * ps;                         // [2][N]
+  int8_t* ring = reinterpret_cast<int8_t*>(graw + 2 * N);            // [2C-1][levels][S][drow]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + nslots * blk);  // [kPlaneBufs]
+  uint64_t* empty = full + kPlaneBufs;                               // [kPlaneBufs]
+  uint64_t* landed = empty + kPlaneBufs;                             // [2] raw rows
+  uint64_t* column = landed + 2;                                     // [C]
+  int* a_s = reinterpret_cast<int*>(column + C);                     // [2][S] by step parity
 
-  const int tid = threadIdx.x, T = blockDim.x, Tc = T - kProducers;
+  const int tid = threadIdx.x;
   const int b0 = blockIdx.x * S;
   const int nb = min(S, s.B - b0);
+  const int workers = 32 * (N / (16 * T));  // the consumer threads that own outputs
+  const int rows = s.n_steps * R * C, jobs = s.n_steps * C;
 
-  // prologue (all threads): the accumulators and step 0's digits
-  for (int idx = tid; idx < S * CN; idx += T) {
+  // the digits of coefficients [lo, hi) (multiples of 4) of the S*N of poly
+  // p at step st into its ring slot, 4 per thread of the nthr from t0
+  auto digits = [&](int st, int p, int lo, int hi, int t0, int nthr) {
+    int8_t* slot = ring + ((st * C + p) % nslots) * blk;
+    const int* a = a_s + (st & 1) * S;
+    for (int idx = lo + 4 * t0; idx < hi; idx += 4 * nthr) {
+      const int bb = idx / N, i = idx - bb * N;
+      whole_scan::rotate_decompose4(acc + bb * CN + p * N, i, a[bb], s, slot + bb * drow + i,
+                                    S * drow);
+    }
+  };
+
+  if (tid == 0) {
+    for (int b = 0; b < kPlaneBufs; ++b) {
+      mbar_init(full + b, kProducers);
+      mbar_init(empty + b, workers);
+    }
+    for (int b = 0; b < 2; ++b) mbar_init(landed + b, 1);
+    for (int c = 0; c < C; ++c) mbar_init(column + c, workers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int idx = tid; idx < S * CN; idx += kThreads) {
     const int bb = idx / CN;
     acc[idx] = bb < nb ? acc0[static_cast<size_t>(b0) * CN + idx] : 0u;
   }
   if (tid < S) a_s[tid] = tid < nb ? (a_hat[b0 + tid] & mask2) : 0;
   __syncthreads();
-  for (int idx = tid; idx < S * CN; idx += T) {
-    const int bb = idx / CN, rem = idx - bb * CN, p = rem / N, i = rem - p * N;
-    whole_scan::rotate_decompose(acc + bb * CN + p * N, i, a_s[bb], s,
-                                 dig + (bb * R + p * s.levels) * N + i, N);
-  }
+  for (int p = 0; p < C && s.n_steps > 0; ++p) digits(0, p, 0, SN, tid, kThreads);
   __syncthreads();
 
-  if (tid < Tc) {
-    // consumers: unit (o0 .. o0+7 of the current column) x SPT samples
-    const int upc = N / kU;
-    const bool active = tid < upc * (S / SPT);
-    const int o0 = (tid % upc) * kU, bs = active ? (tid / upc) * SPT : 0;
-    for (int step = 0; step < s.n_steps; ++step) {
-      const int8_t* dstep = dig + (step & 1) * S * RN + bs * RN;
-      if (step > 0) bar_sync(kBarDigits, T);  // the producers staged this step's digits
-      const uint32_t* bk_step = bk + static_cast<size_t>(step) * R * CN;
-      for (int c = 0; c < C; ++c) {
-        uint32_t delta[SPT][kU];
-#pragma unroll
-        for (int bb = 0; bb < SPT; ++bb)
-#pragma unroll
-          for (int u = 0; u < kU; ++u) delta[bb][u] = 0u;
-        for (int r = 0; r < R; ++r) {
-          whole_scan::stage_row(bk_step + static_cast<size_t>(r) * CN + c * N, s, gext, tid, Tc);
-          bar_sync(kBarConsumers, Tc);
-          if (active) whole_scan::contract_row<SPT>(delta, gext, dstep + r * N, RN, o0, N);
-          bar_sync(kBarConsumers, Tc);
-        }
-        if (active) {
-#pragma unroll
-          for (int bb = 0; bb < SPT; ++bb)
-#pragma unroll
-            for (int u = 0; u < kU; ++u) acc[(bs + bb) * CN + c * N + o0 + u] += delta[bb][u];
-        }
-        if (step + 1 < s.n_steps) bar_arrive(kBarPlane + c, T);  // plane c is final
+  if (tid >= kConsumers) {
+    // producers: raw rows, planes and the next step's digits
+    if constexpr (kProducerWarps % 4 == 0)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    auto load_row = [&](int q) {  // key row q = (step, c, r) into raw row q & 1
+      const int step = q / (R * C), cr = q - step * R * C, c = cr / R, r = cr - c * R;
+      bulk_load(graw + (q & 1) * N, bk + ((static_cast<size_t>(step) * R + r) * C + c) * N,
+                4 * N, landed + (q & 1));
+    };
+    if (pt == 0) {
+      if (rows > 0) load_row(0);
+      if (rows > 1) load_row(1);
+    }
+    int job = C, lo = 0, hi = -1;
+    if (job < jobs) job_rows(job, C, R, levels, lo, hi);
+    for (int q = 0; q < rows; ++q) {
+      const int b = q % kPlaneBufs;
+      mbar_wait(landed + (q & 1), (q >> 1) & 1);
+      mbar_wait(empty + b, ((q / kPlaneBufs) & 1) ^ 1);  // consumers are past row q-kPlaneBufs
+      build_kept_planes<L>(graw + (q & 1) * N, planes + b * ps, N, pt, kProducers);
+      mbar_arrive(full + b);
+      const bool in_job = job < jobs && q >= lo;
+      const int st = job / C, p = job - st * C;
+      if (in_job && q == lo && p == 0 && pt < S)  // step st's exponents
+        a_s[(st & 1) * S + pt] =
+            pt < nb ? (a_hat[static_cast<size_t>(st) * s.B + b0 + pt] & mask2) : 0;
+      bar_sync(kBarProducers, kProducers);  // raw row q is read; the exponents are visible
+      if (pt == 0 && q + 2 < rows) load_row(q + 2);
+      if (in_job) {
+        if (q == lo) mbar_wait(column + p, (st - 1) & 1);  // plane p holds step st-1's sums
+        const int chunk = (SN + 4 * (hi - lo) + 3) / (4 * (hi - lo + 1)) * 4;  // ceil, by 4
+        digits(st, p, (q - lo) * chunk, min(SN, (q - lo + 1) * chunk), pt, kProducers);
+        if (q == hi && ++job < jobs) job_rows(job, C, R, levels, lo, hi);
       }
     }
   } else {
-    // producers: poly c's step-s+1 digits as soon as plane c is final
-    const int pt = tid - Tc;
-    for (int step = 0; step + 1 < s.n_steps; ++step) {
-      int* a_next = a_s + ((step + 1) & 1) * S;
-      int8_t* dnext = dig + ((step + 1) & 1) * S * RN;
-      if (pt < S)
-        a_next[pt] = pt < nb ? (a_hat[static_cast<size_t>(step + 1) * s.B + b0 + pt] & mask2) : 0;
-      bar_sync(kBarProducers, kProducers);
+    // consumers: the mmas of every row, then each column's sums
+    if constexpr (kProducerWarps % 4 == 0)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    if (tid >= workers) return;
+    const limb_planes::Lane ln = limb_planes::lane_of<L, T>(N, S);
+    int q = 0;
+    for (int step = 0; step < s.n_steps; ++step) {
       for (int c = 0; c < C; ++c) {
-        bar_sync(kBarPlane + c, T);
-        for (int idx = pt; idx < S * N; idx += kProducers) {
-          const int bb = idx / N, i = idx - bb * N;
-          whole_scan::rotate_decompose(acc + bb * CN + c * N, i, a_next[bb], s,
-                                       dnext + (bb * R + c * s.levels) * N + i, N);
+        int sums[L][T][4];
+#pragma unroll
+        for (int l = 0; l < L; ++l)
+#pragma unroll
+          for (int a = 0; a < T; ++a)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sums[l][a][i] = 0;
+        for (int r = 0; r < R; ++r, ++q) {
+          const int p = r / levels, b = q % kPlaneBufs;
+          mbar_wait(full + b, (q / kPlaneBufs) & 1);  // and so poly p's digits
+          const int8_t* row = ring + ((step * C + p) % nslots) * blk + (r - p * levels) * S * drow;
+          mma_row<L, T>(sums, planes + b * ps + ln.copy,
+                        reinterpret_cast<const uint32_t*>(row) + ln.dig, N, ln.x0 >> 2, nullptr,
+                        nullptr);
+          mbar_arrive(empty + b);
         }
+        limb_planes::add_column<L, T>(sums, acc, CN, c * N, ln, S);
+        mbar_arrive(column + c);
       }
-      bar_arrive(kBarDigits, T);
     }
+    bar_sync(kBarConsumers, workers);
+    for (int idx = tid; idx < nb * CN; idx += workers)
+      out[static_cast<size_t>(b0) * CN + idx] = acc[idx];
   }
-  __syncthreads();
-  for (int idx = tid; idx < nb * CN; idx += T)
-    out[static_cast<size_t>(b0) * CN + idx] = acc[idx];
 }
 
-template <int SPT>
+template <int L, int T>
 int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const Shape& s,
            int* info, cudaStream_t stream) {
-  const int threads = consumers(s) + kProducers;
   const size_t smem = smem_bytes(s);
   if (smem > static_cast<size_t>(whole_scan::smem_optin()))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(pipe_kernel<SPT>,
+  cudaError_t err = cudaFuncSetAttribute(pipe_kernel<L, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = s.spc;
-  info[1] = threads;
+  info[1] = kThreads;
   info[2] = static_cast<int>(smem);
   info[3] = (s.B + s.spc - 1) / s.spc;
-  pipe_kernel<SPT><<<info[3], threads, smem, stream>>>(
+  pipe_kernel<L, T><<<info[3], kThreads, smem, stream>>>(
       static_cast<const uint32_t*>(acc0), static_cast<const uint32_t*>(bk),
       static_cast<const int32_t*>(a_hat), static_cast<uint32_t*>(out), s);
   return static_cast<int>(cudaGetLastError());
@@ -171,26 +340,29 @@ int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const
 
 extern "C" {
 
-// acc0 u32 [B, C, N], bk u32 [n, R, C, N] (canonical rows p*levels + j),
-// a_hat int32 [n, B] -> out u32 [B, C, N], carry-chain digits, with `spc`
-// samples per CTA.  info (host, 4 ints) receives the plan: samples per CTA,
-// threads per CTA, dynamic shared memory bytes and CTAs.  Returns
-// cudaErrorInvalidValue unless N is a power of two >= kU, 1 <= C <=
-// kMaxColumns, B >= 1, key_limbs is 3 or 4, spc is 1, 2, 4 or 8, the
-// consumers fit kMaxConsumers and the shared memory fits the card's opt-in
-// budget.
+// acc0 u32 [B, C, N], bk u32 [n, R, C, N] (canonical rows p*levels + j,
+// 16-byte aligned), a_hat int32 [n, B] -> out u32 [B, C, N], carry-chain
+// digits, with `spc` samples per CTA.  info (host, 4 ints) receives the
+// plan: samples per CTA, threads per CTA, dynamic shared memory bytes and
+// CTAs.  Returns cudaErrorInvalidValue unless N is a power of two with 64 <=
+// N <= 512 (Kernel B's tiles), C >= 1, B >= 1, bk is 16-byte aligned,
+// key_limbs is 3 or 4, spc is 1, 2, 4 or 8 and the shared memory fits the
+// card's opt-in budget.
 int blind_rotate_fused_pipe(const void* acc0, const void* bk, const void* a_hat, void* out,
                             int n_steps, int B, int C, int N, int levels, int log_base,
                             int ignored_bits, int key_limbs, int spc, int* info,
                             void* stream) {
-  const Shape s{n_steps, B, C, N, levels, log_base, ignored_bits, 0, 0u, key_limbs, spc};
-  if (N < kU || (N & (N - 1)) || C < 1 || C > kMaxColumns || B < 1 ||
-      (key_limbs != 3 && key_limbs != 4) || (spc != 1 && spc != 2 && spc != 4 && spc != 8) ||
-      consumers(s) > kMaxConsumers)
+  if (N < 64 || N > 512 || (N & (N - 1)) || C < 1 || B < 1 ||
+      reinterpret_cast<uintptr_t>(bk) % 16 || (key_limbs != 3 && key_limbs != 4) ||
+      (spc != 1 && spc != 2 && spc != 4 && spc != 8))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s{n_steps, B, C, N, levels, log_base, ignored_bits, 0, 0u, key_limbs, spc};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return spc == 1 ? launch<1>(acc0, bk, a_hat, out, s, info, st)
-                  : launch<2>(acc0, bk, a_hat, out, s, info, st);
+  if (tiles_per_warp(N) == 4)
+    return key_limbs == 4 ? launch<4, 4>(acc0, bk, a_hat, out, s, info, st)
+                          : launch<3, 4>(acc0, bk, a_hat, out, s, info, st);
+  return key_limbs == 4 ? launch<4, 2>(acc0, bk, a_hat, out, s, info, st)
+                        : launch<3, 2>(acc0, bk, a_hat, out, s, info, st);
 }
 
 const char* tfhe_cuda_error_string(int err) {

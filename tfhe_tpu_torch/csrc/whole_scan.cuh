@@ -1,10 +1,8 @@
 // Device helpers shared by the whole-scan blind-rotation kernels (Kernels B,
 // E, F and G): the gadget decompositions of one rotated-minus-accumulator
-// value (all four), and for Kernel E alone, the one u32 kernel left, the
-// truncated-key word, the staged [g, -g] row and the per-row negacyclic
-// contraction of a thread's samples against it (Kernels B, F and G take the
-// int8 limb planes of limb_planes.cuh through mma_row.cuh instead, and drop
-// limb 0 at key_limbs = 3).
+// value, or of four (Kernel E).  The contraction itself is the int8 tensor-core one of
+// limb_planes.cuh and mma_row.cuh, which drops limb 0 of each sign-twisted
+// key word at key_limbs = 3.
 //
 // Every kernel computes, per step s and sample b with a = a_hat[s, b] mod 2N:
 //
@@ -12,7 +10,9 @@
 //   d[r, m]    = signed gadget digits of rot - acc, row r = p*levels + j
 //   acc[c, o] += sum_{r, m} d[r, m] * w(+-bk[s, r, c, (o - m) mod N])   (mod 2^32)
 //
-// with w the identity (key_limbs = 4) or the truncation below (key_limbs = 3).
+// with w the identity (key_limbs = 4) or, at key_limbs = 3, the word less
+// its low balanced byte sext8(w & 0xFF), the sign applied first (sext8(-g)
+// != -sext8(g) when the low byte of g is 0x80).
 
 #pragma once
 
@@ -20,8 +20,6 @@
 #include <cuda_runtime.h>
 
 namespace whole_scan {
-
-constexpr int kU = 8;  // consecutive output coefficients per thread
 
 // The current device's opt-in shared memory per block (bytes), or -1.
 inline int smem_optin() {
@@ -39,20 +37,6 @@ struct Shape {
   int key_limbs;             // 4: exact; 3: the low byte of each twisted key word dropped
   int spc;                   // samples per CTA
 };
-
-// one padding word in nine: consecutive threads read words 8 apart
-__host__ __device__ __forceinline__ int pad(int j) { return j + (j >> 3); }
-
-__device__ __forceinline__ int sbyte(uint32_t word, int i) {
-  return static_cast<int>(word << (24 - 8 * i)) >> 24;
-}
-
-// key_limbs = 3: the TPU kernels split the sign-twisted word w = +-g into
-// balanced bytes and drop byte 0, whose value is sext8(w & 0xFF).  The sign
-// is applied first: sext8(-g) != -sext8(g) when the low byte of g is 0x80.
-__device__ __forceinline__ uint32_t key_word(uint32_t w, int key_limbs) {
-  return key_limbs == 4 ? w : w - static_cast<uint32_t>(sbyte(w, 0));
-}
 
 // Signed digits of one u32 value, written MSB-first at out[j * stride].
 __device__ __forceinline__ void decompose(uint32_t diff, const Shape& s, int8_t* out,
@@ -90,37 +74,47 @@ __device__ __forceinline__ void rotate_decompose(const uint32_t* plane, int i, i
   decompose(rot - plane[i], s, out, stride);
 }
 
-// Stage row `row` (N words of one key column) as w(+-g) over 2N padded words.
-__device__ __forceinline__ void stage_row(const uint32_t* __restrict__ row, const Shape& s,
-                                          uint32_t* gext, int tid, int nthr) {
-  for (int j = tid; j < 2 * s.N; j += nthr) {
-    const uint32_t g = row[j & (s.N - 1)];
-    gext[pad(j)] = key_word(j < s.N ? g : 0u - g, s.key_limbs);
+// rotate_decompose of coefficients i .. i+3 with carry-chain digits (Kernel
+// E's producers; i a multiple of 4, plane 16-byte and out 4-byte aligned),
+// each digit row's 4 bytes written as one word at out[j * stride]: the
+// rotated window is two aligned 16-byte groups of the plane, shifted by
+// (i - a) mod 4.
+__device__ __forceinline__ void rotate_decompose4(const uint32_t* plane, int i, int a,
+                                                  const Shape& s, int8_t* out, int stride) {
+  const int mask2 = 2 * s.N - 1, s0 = (i - a) & mask2, sh = s0 & 3;
+  const int g0 = s0 - sh, g1 = (g0 + 4) & mask2;
+  uint4 u0 = *reinterpret_cast<const uint4*>(plane + (g0 & (s.N - 1)));
+  uint4 u1 = *reinterpret_cast<const uint4*>(plane + (g1 & (s.N - 1)));
+  if (g0 >= s.N) u0 = make_uint4(0u - u0.x, 0u - u0.y, 0u - u0.z, 0u - u0.w);
+  if (g1 >= s.N) u1 = make_uint4(0u - u1.x, 0u - u1.y, 0u - u1.z, 0u - u1.w);
+  const uint32_t w[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+  const uint4 cur = *reinterpret_cast<const uint4*>(plane + i);
+  const uint32_t c[4] = {cur.x, cur.y, cur.z, cur.w};
+  const uint32_t mask = (1u << s.log_base) - 1u;
+  const int half = 1 << (s.log_base - 1), ig = s.ignored_bits;
+  uint32_t v[4];
+  int carry[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    uint32_t rot = w[u];
+    rot = sh == 1 ? w[u + 1] : rot;
+    rot = sh == 2 ? w[u + 2] : rot;
+    rot = sh == 3 ? w[u + 3] : rot;
+    const uint32_t diff = rot - c[u];  // then decompose's rounding and carry chain
+    v[u] = ig ? (diff >> ig) + ((diff >> (ig - 1)) & 1u) : diff;
+    carry[u] = 0;
   }
-}
-
-// delta[bb][u] += sum_m d_bb[m] * gx[pad((o0 + u - m) mod 2N)] for the
-// thread's SPT samples, whose digit rows start at drow + bb * dstride.
-// win[t] holds gx at (o0 - m0 - kU + t); output o0+u at m0+mm reads
-// win[u - mm + kU], so each staged word feeds SPT x up to kU multiply-adds.
-template <int SPT>
-__device__ __forceinline__ void contract_row(uint32_t (&delta)[SPT][kU], const uint32_t* gx,
-                                             const int8_t* drow, int dstride, int o0, int N) {
-  const int mask2 = 2 * N - 1;
-  for (int m0 = 0; m0 < N; m0 += kU) {
-    uint32_t win[2 * kU];
+  for (int l = 0; l < s.levels; ++l) {
+    uint32_t word = 0u;
 #pragma unroll
-    for (int t = 1; t < 2 * kU; ++t) win[t] = gx[pad((o0 - m0 - kU + t) & mask2)];
-#pragma unroll
-    for (int bb = 0; bb < SPT; ++bb) {
-      const uint2 dv = *reinterpret_cast<const uint2*>(drow + bb * dstride + m0);
-#pragma unroll
-      for (int mm = 0; mm < kU; ++mm) {
-        const uint32_t d = static_cast<uint32_t>(sbyte(mm < 4 ? dv.x : dv.y, mm & 3));
-#pragma unroll
-        for (int u = 0; u < kU; ++u) delta[bb][u] += d * win[u - mm + kU];
-      }
+    for (int u = 0; u < 4; ++u) {
+      int res = static_cast<int>((v[u] >> (s.log_base * l)) & mask) + carry[u];
+      const int cm = res & half;
+      res -= cm << 1;
+      carry[u] = cm >> (s.log_base - 1);
+      word |= (static_cast<uint32_t>(res) & 0xFFu) << (8 * u);
     }
+    *reinterpret_cast<uint32_t*>(out + (s.levels - 1 - l) * stride) = word;
   }
 }
 

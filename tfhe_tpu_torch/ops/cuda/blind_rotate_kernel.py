@@ -6,8 +6,10 @@ hand-written kernel and plain twin.
     tensor cores on the limb planes of ``csrc/limb_planes.cuh``): both digit
     conventions, ``key_limbs`` 4 (exact) or 3 (impls 'fused', 'fusedb',
     'fused3', 'fusedb3');
-  * ``blind_rotate_fused_pipe`` — Kernel E (``csrc/pipe_kernel.cu``):
-    carry-chain digits, ``key_limbs`` 4 or 3 ('fusedp', 'fusedp3');
+  * ``blind_rotate_fused_pipe`` — Kernel E (``csrc/pipe_kernel.cu``, Kernel
+    B's contraction in consumer warps fed by producer warps that build the
+    limb planes and the next step's digits): carry-chain digits,
+    ``key_limbs`` 4 or 3 ('fusedp', 'fusedp3');
   * ``blind_rotate_fused_wide_pipe`` — Kernel F (``csrc/wide_pipe_kernel.cu``):
     both digit conventions, exact key ('fusedw', 'fusedwb');
   * ``blind_rotate_fused_cols`` — Kernel G (``csrc/cols_kernel.cu``, a
@@ -16,9 +18,9 @@ hand-written kernel and plain twin.
 
 All four compute the same step (``csrc/whole_scan.cuh``), so at one digit
 convention and key width they agree bit for bit; they differ in schedule
-and arithmetic: B, F and G share one int8 tensor-core contraction
+only: all four share one int8 tensor-core contraction
 (``csrc/mma_row.cuh``: limb sums recombined mod 2^32) and take N a power of
-two from 64 to 512; E multiply-adds in u32.
+two from 64 to 512.
 ``key_limbs=3`` drops the low byte of each sign-twisted key word, as the TPU
 kernels drop their lowest int8 limb plane: an approximate mode that spends
 part of the gate's noise margin (PERF.md measures how much at default_128).
@@ -27,8 +29,8 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain twin
 ``*_ref`` for CPU tensors; it raises for anything else.  On the card the
 samples per CTA are the largest of ``SAMPLES_PER_CTA`` whose shared memory
 fits the card's budget (``_build.smem_budget``); a shape that does not fit
-one sample, or for F and G an N outside 64..512, raises ``ValueError``
-before anything is launched.  Unlike the
+one sample, or an N outside 64..512, raises ``ValueError`` before anything
+is launched.  Unlike the
 TPU kernels, whose batch lives in VMEM (2048 samples per call for
 ``fusedp``, 1536 for ``fusedw``), each kernel takes any batch in one launch.
 u32 values are int32 tensors (see ``ops/torus.py``).
@@ -68,7 +70,7 @@ COLS_KERNEL = CudaKernel("cols_kernel", "blind_rotate_fused_cols",
                          [_PTR] * 4 + [_INT] * 9 + [_INFO, _PTR])
 #: the whole-scan kernels redesigned on Kernel B's contraction (mma_row.cuh),
 #: whose wrappers refuse any N but MMA_DEGREES before a launch
-MMA_KINDS = ("wide_pipe", "cols")
+MMA_KINDS = ("pipe", "wide_pipe", "cols")
 MMA_DEGREES = (64, 128, 256, 512)
 #: the launch plan of each kernel's last launch, by C symbol: samples per
 #: CTA, threads per CTA, dynamic shared memory bytes, CTAs (and for Kernel G
@@ -82,18 +84,22 @@ def smem_bytes(kind: str, params: TfheParams, spc: int) -> int:
     symbol's suffix: 'fused', 'pipe', 'wide_pipe' or 'cols'."""
     c, n, levels = params.glwe_dimension + 1, params.degree, params.pbs_decomposer.levels
     r = c * levels
-    # Kernels B, F and G: two sets of 16 byte-shifted limb-plane copies
-    # (limb_planes.cuh:copy_words) and two raw key rows; digit rows padded by
+    # one set of 16 byte-shifted limb-plane copies (limb_planes.cuh:copy_words)
+    # and one raw key row; B, F and G keep two of each; digit rows padded by
     # 16 bytes (digit_row_bytes)
-    planes = 2 * 4 * 16 * (n // 2 + 8) + 2 * 4 * n
+    plane_set, raw_row = 4 * 16 * (n // 2 + 8), 4 * n
+    planes = 2 * plane_set + 2 * raw_row
     drow = n + 16
     if kind == "fused":
         # accumulators, planes, the digits, the exponents
         return 4 * spc * c * n + planes + r * spc * drow + 4 * spc
     if kind == "pipe":
-        # accumulators, digits of two steps, one staged row w(+-g) of 2N
-        # words with one padding word in nine, exponents of two steps
-        return 4 * spc * c * n + 2 * spc * r * n + 4 * (2 * n + (2 * n >> 3)) + 4 * 2 * spc
+        # accumulators, a ring of 3 plane buffers, two raw rows, Kernel F's
+        # ring of 2C-1 poly slots of digits, the mbarriers (full and empty
+        # per plane buffer, two raw rows, one per column), the exponents of
+        # two steps
+        return (4 * spc * c * n + 3 * plane_set + 2 * raw_row
+                + (2 * c - 1) * levels * spc * drow + 8 * (2 * 3 + 2 + c) + 4 * 2 * spc)
     if kind == "wide_pipe":
         # accumulators, planes, a ring of 2C-1 poly slots of digits, exponents
         # of two steps
@@ -202,8 +208,9 @@ def blind_rotate_fused(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Ten
 
 def blind_rotate_fused_pipe(params: TfheParams, acc0: torch.Tensor, bk_u32: torch.Tensor,
                             a_hat: torch.Tensor, key_limbs: int = 4) -> torch.Tensor:
-    """Kernel E: as ``blind_rotate_fused`` with carry-chain digits, step
-    s+1's digits built by producer warps while step s's columns contract."""
+    """Kernel E: as ``blind_rotate_fused`` with carry-chain digits; its
+    consumer warps only contract, while producer warps build each key row's
+    limb planes and step s+1's digits as step s's columns finish."""
     _check_key_limbs(key_limbs)
     if _on_cpu(acc0, bk_u32, a_hat):
         return blind_rotate_fused_pipe_ref(params, acc0, bk_u32, a_hat, key_limbs)
