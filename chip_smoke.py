@@ -11,12 +11,15 @@ failure, so the script exits nonzero and prints no result line.
   0. require CUDA; print the card, its power limit, torch and CUDA versions;
   1. build the kernels, all nvcc processes at once (one per source, eight),
      with the build seconds and ptxas' resource report, and count the IMMA
-     (integer tensor-core) instructions of Kernels A, H, B, E, F and G with
-     ``cuobjdump -sass``: there must be some in each;
+     (integer tensor-core) instructions of Kernels A, H, B, E, F, G and D
+     with ``cuobjdump -sass``: there must be some in each, and Kernel D must
+     hold no IDP4A (dp4a) instruction;
   2. hold each kernel against its plain PyTorch twin (``torch.equal``) at
      nano, test_insecure and a 16-step slice of the default_128 key (Kernel C
      in both forms: V=1 and the BMMP V=3; Kernel D also on an all-ones
-     canonical key, the key side of its CRT range at its bound; Kernel B in
+     canonical key, the key side of its CRT range at its bound, on every
+     byte 0x80 with the largest digits, at large_2048, and under every plan
+     instance (samples per CTA, split) forced, NTTF_PLANS; Kernel B in
      its four modes (fused, fusedb, fused3, fusedb3) at B = 1, 3, 7, 8, 9,
      64 and 65, on random keys, keys whose every byte is 0x80 and keys whose
      every low byte is 0x80 (the truncated key's hard case); Kernel B at
@@ -82,7 +85,8 @@ flattened to [B, R*N], against the key's Toeplitz limb form
 cuBLAS's fastest layout for it); its time is their ``library_ms``, held
 equal to the kernels' sums.  Their entries also carry the ``plan`` of the
 B=64 launch, and the whole-scan kernels' entries that of their main-path
-launch.  No single call computes the whole-scan kernels' functions, so
+launch, Kernel D's with the IMMA and IDP4A counts of its SASS.  No
+single call computes the whole-scan kernels' functions, so
 theirs is null.  The last line is ``{"ok": true,
 "device": {...}}``.  It imports neither JAX nor ``tfhe_tpu``.
 """
@@ -196,6 +200,15 @@ def phase1(kernels, tensor_core_kernels) -> None:
                            "tensor cores")
 
 
+def sass_counts(kernel) -> dict:
+    """IMMA (int8 tensor-core mma) and IDP4A (CUDA-core dp4a) instructions in
+    a built kernel's SASS, by ``scripts/sass_compare.py``'s reader."""
+    from sass_compare import sass_lines
+
+    sass = sass_lines(kernel.path)
+    return {"imma": sum("IMMA" in ln for ln in sass), "idp4a": sum("IDP4A" in ln for ln in sass)}
+
+
 def phase2(epk, brk, get_params, to_torch_u32, params, sk, dev) -> None:
     log("phase 2: kernels against their plain twins (torch.equal)")
     rng = np.random.default_rng(2)
@@ -269,25 +282,40 @@ def phase2_latency(latk, get_params, to_torch_u32, params, sk, dev) -> None:
     torch.cuda.synchronize()
 
 
+#: Kernel D's plan instances held against its twin in phase 2: (samples per
+#: CTA, split), each at a batch whose last cluster is partly empty
+NTTF_PLANS = ((1, 1), (1, 2), (1, 4), (1, 8), (2, 1), (2, 2), (2, 4), (2, 8))
+
+
 def phase2_nttf(nttk, ntt, get_params, to_torch_u32, params, sk, dev) -> None:
     """Kernel D against its twin: random canonical keys (turned into the lhs
-    form) at nano, test_insecure (B=256 takes 2 samples per CTA) and
-    large_2048 (4 key limbs), an all-0xFFFFFFFF key, and a 16-step slice of
-    the default_128 lhs key (the main path at B=1024, 4 samples per CTA, is
-    held against the twin in phase 4)."""
+    form) at nano, test_insecure (under the plans the kernel picks and, at
+    2 steps, every plan instance forced, NTTF_PLANS, and 4 samples per CTA
+    at nano) and large_2048 (4 key limbs, key stages of row chunks), an
+    all-0xFFFFFFFF key, the worst case (every key byte 0x80 and digits -8
+    and +16 in step 0), and a 16-step slice of the default_128 lhs key at
+    B=32 and 1024 (the main path at [B=1024, 722 steps] is held against the
+    twin in phase 4)."""
     rng = np.random.default_rng(6)
-    cases = [(name, b, "random") for name, bs in (("nano", (1, 3, 8)),
-                                                   ("test_insecure", (1, 7, 64, 256)),
-                                                   ("large_2048", (3,))) for b in bs]
-    cases += [("test_insecure", 7, "all-ones"), (params.name, 32, "slice")]
-    for name, b, kind in cases:
+    cases = [(name, b, "random", None, (0, 0))
+             for name, bs in (("nano", (1, 3, 8)), ("test_insecure", (1, 7, 64, 256)),
+                              ("large_2048", (3,))) for b in bs]
+    cases += [("test_insecure", spc * split + 1, "random", 2, (spc, split))
+              for spc, split in NTTF_PLANS]
+    cases += [("nano", 4 * split + 1, "random", None, (4, split)) for split in (1, 2, 4)]
+    cases += [("large_2048", 5, "random", 2, (1, 2)),
+              ("test_insecure", 7, "all-ones", None, (0, 0)),
+              ("test_insecure", 9, "worst", 2, (2, 4)),
+              (params.name, 32, "slice", None, (0, 0)),
+              (params.name, MAIN_B, "slice", None, (0, 0))]
+    for name, b, kind, steps, plan in cases:
         p = get_params(name)
         k1, n = p.glwe_dimension + 1, p.degree
         if kind == "slice":
             bk_lhs = sk.bk_ntt_lhs[:SLICE_STEPS]
         else:
             # large_2048 (4 key limbs) on 4 steps of its 722
-            shape = (min(p.lwe_dimension, 4), k1 * p.pbs_decomposer.levels, k1, n)
+            shape = (steps or min(p.lwe_dimension, 4), k1 * p.pbs_decomposer.levels, k1, n)
             bk = (np.full(shape, 0xFFFFFFFF, np.uint32) if kind == "all-ones"
                   else rnd_u32(rng, shape))
             bk_lhs = ntt.ntt_key_lhs_form(
@@ -295,10 +323,17 @@ def phase2_nttf(nttk, ntt, get_params, to_torch_u32, params, sk, dev) -> None:
         steps = bk_lhs.shape[0]
         acc0 = to_torch_u32(rnd_u32(rng, (b, k1, n)), dev)
         a_hat = torch.from_numpy(rng.integers(0, 2 * n, size=(steps, b), dtype=np.int32)).to(dev)
-        got = nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat)
+        if kind == "worst":  # rot - acc = -2*acc = 0xF8F8F800 in step 0: digits -8, +16
+            bk_lhs = torch.full_like(bk_lhs, -128)
+            acc0 = to_torch_u32(np.full((b, k1, n), 0x83838400, np.uint32), dev)
+            a_hat[0] = n
+        got = nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat, plan)
         want = nttk.blind_rotate_nttf_ref(p, acc0, bk_lhs, a_hat)
         require(torch.equal(got, want),
-                f"blind_rotate_nttf != twin at {name} B={b} steps={steps} ({kind} key)")
+                f"blind_rotate_nttf != twin at {name} B={b} steps={steps} ({kind} key, "
+                f"plan {plan})")
+        picked = tuple(nttk.last_plan[k] for k in ("samples_per_cta", "split"))
+        require(plan in ((0, 0), picked), f"Kernel D ran plan {picked}, not {plan}")
         log(f"  blind_rotate_nttf {kind:8s} {name:13s} B={b:<4d} steps={steps:<3d} equal; "
             f"plan {nttk.last_plan}")
     torch.cuda.synchronize()
@@ -611,7 +646,8 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase0()
     sys.path[:0] = [str(ROOT), str(ROOT / "scripts")]
-    from measure_torch import dp4a_per_sample_step, graph_ms, sampled_clocks
+    from measure_torch import graph_ms, int8_products_per_sample_step
+    from measure_torch import sampled_clocks
     import tfhe_tpu_torch as tfhe
     from tfhe_tpu_torch.models import bootstrap as mboot
     from tfhe_tpu_torch.models import ggsw as mggsw
@@ -634,6 +670,11 @@ def main() -> int:
                brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL, epk.BATCH_KERNEL)
     phase1(kernels, (epk.KERNEL, epk.BATCH_KERNEL, brk.KERNEL, brk.PIPE_KERNEL,
                      brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL))
+    d_sass = sass_counts(nttk.KERNEL)
+    log(f"  {nttk.KERNEL.source}: {d_sass['imma']} IMMA, {d_sass['idp4a']} IDP4A instructions "
+        "(sass_compare.sass_lines)")
+    require(d_sass["imma"] > 0 and d_sass["idp4a"] == 0,
+            "Kernel D's products are not all on the tensor cores (IMMA, no IDP4A)")
     t0 = time.perf_counter()
     budget = smem_budget(dev)
     budget_us = (time.perf_counter() - t0) * 1e6
@@ -933,8 +974,9 @@ def main() -> int:
     bk_bound = bound(r * n * k1 * n * 4 * steps * MAIN_B, acc_bytes + nbytes(sk.bk_u32))
     b1 = 2 * nbytes(acc0[:1]) + nbytes(a_hat[:, :1])
     lat_bound = bound(k1 * 4 * sk.bk_lat.shape[-1] * n * steps, b1 + nbytes(sk.bk_lat))
-    nd_bound = bound(4 * dp4a_per_sample_step(params) * steps * MAIN_B,
+    nd_bound = bound(int8_products_per_sample_step(params) * steps * MAIN_B,
                      acc_bytes + nbytes(sk.bk_ntt_lhs))
+    plan_d.update(d_sass)
 
     record = {"kernels": [
         {"name": "ep_contract_rbn", "route": "cuda",
@@ -971,7 +1013,7 @@ def main() -> int:
          "replaces": "tfhe_tpu/ops/pallas/ntt_kernel.py:211",
          "launches": launches["blind_rotate_nttf"], "max_abs_err": nd_err,
          "ms": nd_ms, "plain_ms": nd_plain_ms, "bound_ms": nd_bound[0],
-         "bound_by": nd_bound[1], "library_ms": None},
+         "bound_by": nd_bound[1], "library_ms": None, "plan": plan_d},
     ]}
     # the whole-scan variants: Kernel B at key_limbs=3 (its launches on the
     # variants path are fused3's and fusedb3's), Kernels E, F and G

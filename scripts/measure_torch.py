@@ -16,8 +16,15 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
   * the NTT key forms (``with_ntt_key``, ``with_ntt_lhs_key``): seconds and
     peak device memory;
   * Kernel D (``blind_rotate_nttf``) alone at B = 8 .. 2048, with its launch
-    plan, and the SM clock while it runs at B=1024, and from them the dp4a
-    per clock per busy SM;
+    plan; the SM clock while it runs at B=1024, and from them the
+    m16n8k32 per clock per busy SM; its mma count, the key bytes a CTA
+    takes in and the key bytes read from L2 per gate, counted by a copy
+    of the kernel (``kernel_d_counted``); the SM clocks of each
+    phase of its step (``kernel_d_phase_clocks``); and where its time goes
+    (``kernel_d_cuts``: copies with the forward, the contraction or the
+    inverse alone, the key loads alone, no key loads, no exchange between
+    the CTAs of a cluster or no reductions, ``CUTS_D``, and the picked plan
+    against others, ``PLANS_D``, a cluster of 1 among them);
   * Kernels E, F and G (``blind_rotate_fused_pipe``, ``_wide_pipe``,
     ``_cols``) alone at B = 8 .. 2048 and Kernel B at key_limbs=3 at
     B=1024, with their launch plans;
@@ -120,6 +127,99 @@ CUTS = {
           "8 producer warps": (_E_PRODUCERS[8],)},
 }
 EXACT_CUTS = {("E", "2 producer warps"), ("E", "8 producer warps")}
+# Kernel D (csrc/ntt_kernel.cu): its forward, contraction and inverse (each
+# cut with the exchange of what it makes), the key stream, the exchange
+# between the CTAs of a cluster and the reductions.  Each cut keeps the
+# digit phase and the cluster's other handshakes.
+_D_NO_FORWARD = (
+    ("  const int gid = lane >> 2, tig = lane & 3, RN2p = s.RN2p, ntl = S * RN2p / 8;",
+     "  return;\n  const int gid = lane >> 2, tig = lane & 3, RN2p = s.RN2p, ntl = S * RN2p / 8;"),
+    ("        exchange(dh_out, s.blk_dh,", "        if (false) exchange(dh_out, s.blk_dh,"))
+_D_NO_CONTRACT = (
+    ("  const int gid = lane >> 2, tig = lane & 3, RN2 = s.RN2, RN2p = s.RN2p, CLN2 = s.CLN2;",
+     "  return;\n  const int gid = lane >> 2, tig = lane & 3, RN2 = s.RN2, RN2p = s.RN2p, "
+     "CLN2 = s.CLN2;"),
+    ("        exchange(ch_out, s.blk_ch,", "        if (false) exchange(ch_out, s.blk_ch,"))
+_D_NO_INVERSE = (("  const int gid = lane >> 2, tig = lane & 3;\n",
+                  "  return;\n  const int gid = lane >> 2, tig = lane & 3;\n"),)
+_D_NO_KEYS = (("    if (lane == 0) produce(s, bk, keys, full, consumed);", ""),
+              ("            mbar_wait(full + b, parity);", ""))
+_D_NO_EXCHANGE = (("      fence_proxy_async();  // the consumers' writes of `sent`",
+                   "      return;\n      fence_proxy_async();  // the consumers' writes of `sent`"),)
+_D_NO_REDUCE = (("  int r = x % P;  // in (-P, P), with the sign of x",
+                 "  return x;\n  int r = x % P;  // in (-P, P), with the sign of x"),)
+CUTS_D = {"forward only": _D_NO_CONTRACT + _D_NO_INVERSE,
+          "contraction only": _D_NO_FORWARD + _D_NO_INVERSE,
+          "inverse only": _D_NO_FORWARD + _D_NO_CONTRACT,
+          "key loads with no mma": _D_NO_FORWARD + _D_NO_CONTRACT + _D_NO_INVERSE,
+          "no key loads": _D_NO_KEYS,
+          "no exchange": _D_NO_EXCHANGE,
+          "no reductions": _D_NO_REDUCE}
+#: Kernel D's plans timed beside the picked one: (samples per CTA, split);
+#: (2, 1) is a cluster of 1 (every CTA takes in the whole key)
+PLANS_D = ((2, 1), (2, 4), (1, 8))
+#: Kernel D with phase timers: thread 0 of CTA 0 sums clock64() over each
+#: phase of a step (PHASES_D, in order) and writes the sums over its first
+#: outputs, which are then wrong
+PHASES_D = ("step start", "digits", "forward p1", "Dh exchange p1", "contraction p1",
+            "Ch exchange p1", "inverse p1", "forward p2", "Dh exchange p2", "contraction p2",
+            "Ch exchange p2", "inverse p2")
+
+
+def _before(anchor: str, text: str) -> tuple[str, str]:
+    return anchor, text + anchor
+
+
+def _after(anchor: str, text: str) -> tuple[str, str]:
+    return anchor, anchor + text
+
+
+_D_TIMERS = (
+    _after("    int kb = 0, kpar = 0;  // the key stage to consume next, and its phase parity\n",
+           "    long long clocks[12] = {}, last = clock64();\n"
+           "    auto tick = [&](int phase) {\n"
+           "      if (tid == 0) {\n"
+           "        const long long now = clock64();\n"
+           "        clocks[phase] += now - last;\n"
+           "        last = now;\n"
+           "      }\n"
+           "    };\n"),
+    _before("      // digits: rows (sample, r*N2 + j1)", "      tick(0);\n"),
+    _before("#pragma unroll\n      for (int prime = 0;", "      tick(1);\n"),
+    _before("        exchange(dh_out, s.blk_dh,", "        tick(2 + 5 * prime);\n"),
+    _before("        uint32_t ph[kMaxOwned][kMaxNt] = {}", "        tick(3 + 5 * prime);\n"),
+    _before("        exchange(ch_out, s.blk_ch,", "        tick(4 + 5 * prime);\n"),
+    _before("        if (prime == 0)\n          inverse<", "        tick(5 + 5 * prime);\n"),
+    _after("        if (tid == 0) bulk_commit_wait_read();\n        bar_consumers();\n",
+           "        tick(6 + 5 * prime);\n"),
+    _after("      out[static_cast<size_t>(b0) * CN + idx] = acc[idx];\n",
+           "    if (tid == 0 && blockIdx.x == 0)\n"
+           "      for (int k = 0; k < 12; ++k) {\n"
+           "        out[2 * k] = static_cast<uint32_t>(clocks[k]);\n"
+           "        out[2 * k + 1] = static_cast<uint32_t>(clocks[k] >> 32);\n"
+           "      }\n"))
+#: Kernel D with counters: the warp-wide m16n8k32 and m16n8k16 mma.sync it
+#: issues and the key bytes its producers' bulk copies read, summed over
+#: the launch in device memory and read back by tfhe_kernel_counts
+_D_COUNTERS = (
+    _after("constexpr int kBarConsumers = 1;  // named barrier (0 is __syncthreads)\n",
+           "__device__ unsigned long long g_counts[3];\n"),
+    _after("                                      uint32_t a3, uint32_t b0, uint32_t b1) {\n",
+           "  if ((threadIdx.x & 31) == 0) atomicAdd(&g_counts[0], 1ull);\n"),
+    _after("__device__ __forceinline__ void mma16(int (&c)[4], uint32_t a0, uint32_t a1, "
+           "uint32_t b0) {\n",
+           "  if ((threadIdx.x & 31) == 0) atomicAdd(&g_counts[1], 1ull);\n"),
+    _after("__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, "
+           "uint64_t* bar) {\n",
+           "  atomicAdd(&g_counts[2], static_cast<unsigned long long>(bytes));\n"),
+    _before("const char* tfhe_cuda_error_string(int err) {",
+            "int tfhe_kernel_counts(unsigned long long* host, int reset) {\n"
+            "  cudaError_t err = cudaMemcpyFromSymbol(host, g_counts, sizeof(g_counts));\n"
+            "  const unsigned long long zero[3] = {};\n"
+            "  if (err == cudaSuccess && reset)\n"
+            "    err = cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));\n"
+            "  return static_cast<int>(err);\n"
+            "}\n\n"))
 SUBPARTITIONS_PER_SM = 4  # each with its own tensor core
 
 
@@ -224,11 +324,11 @@ def device_busy(fn) -> tuple[float, list[tuple[str, float, int]]]:
     return sum(r[1] for r in rows), rows[:8]
 
 
-def dp4a_per_sample_step(p) -> int:
-    """Kernel D's __dp4a count per sample and step: per prime, the forward
-    transforms (2 byte planes of the table), the per-bin contraction and the
-    inverse transforms (4 byte-plane products each), four int8 products per
-    dp4a."""
+def int8_products_per_sample_step(p) -> int:
+    """Kernel D's int8 multiply-adds per sample and step as the TPU kernel
+    formulates them: per prime, the forward transforms (2 byte planes of the
+    table against 1-byte digits), the per-bin contraction and the inverse
+    transforms (4 byte-plane products each)."""
     from tfhe_tpu_torch.ops import ntt
 
     plan = ntt.plan_for_params(p)
@@ -236,8 +336,134 @@ def dp4a_per_sample_step(p) -> int:
     rn2 = k1 * p.pbs_decomposer.levels * plan.n2
     cln2 = k1 * plan.key_limbs * plan.n2
     n1 = plan.n1
-    per_prime = 2 * rn2 * n1 * n1 + 4 * n1 * cln2 * rn2 + 4 * cln2 * n1 * n1
-    return len(ntt.PRIMES) * per_prime // 4
+    return len(ntt.PRIMES) * (2 * rn2 * n1 * n1 + 4 * n1 * cln2 * rn2 + 4 * cln2 * n1 * n1)
+
+
+def kernel_d_counted(nttk, p, acc0, bk_lhs, a_hat) -> dict:
+    """Kernel D built with counters (``_D_COUNTERS``) and run once on these
+    inputs under the plan it picks: the m16n8k32 and m16n8k16 ``mma.sync``
+    it issues per CTA and step, the key bytes a CTA takes in per step, and
+    the key bytes all CTAs read from L2 per step.  The counts do not depend
+    on the data, so a few steps of the key serve."""
+    import ctypes
+
+    counted = build_cut(nttk.KERNEL, "D", "counters", _D_COUNTERS)
+    read = counted._lib.tfhe_kernel_counts
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    host = (ctypes.c_ulonglong * 3)()
+    whole = nttk.KERNEL
+    try:
+        nttk.KERNEL = counted
+        with torch.cuda.device(acc0.device):
+            torch.cuda.synchronize()
+            if read(host, 1):
+                raise RuntimeError("reading Kernel D's counters failed")
+            nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat)
+            torch.cuda.synchronize()
+            if read(host, 1):
+                raise RuntimeError("reading Kernel D's counters failed")
+    finally:
+        nttk.KERNEL = whole
+    plan = dict(nttk.last_plan)
+    steps = bk_lhs.shape[0]
+    per = plan["ctas"] * steps
+    return {"plan": plan, "steps": steps, "mma_m16n8k32_per_cta_step": host[0] / per,
+            "mma_m16n8k16_per_cta_step": host[1] / per, "key_bytes_per_cta_step": host[2] / per,
+            "l2_key_bytes_per_step": host[2] / steps}
+
+
+def cut_sources(kernel, tag: str, name: str, pairs) -> dict[str, str]:
+    """``kernel``'s sources (its .cu and every csrc/*.cuh), file name ->
+    text, with each (text, replacement) of ``pairs`` made; raises unless
+    each text is in them exactly once."""
+    from tfhe_tpu_torch.ops.cuda import _build
+
+    srcs = {f.name: f.read_text() for f in [_build.CSRC / f"{kernel.source}.cu",
+                                            *sorted(_build.CSRC.glob("*.cuh"))]}
+    for old, new in pairs:
+        where = [f for f, text in srcs.items() if old in text]
+        if len(where) != 1 or srcs[where[0]].count(old) != 1:
+            raise RuntimeError(f"cut {tag} {name!r}: {old!r} is not in the sources once")
+        srcs[where[0]] = srcs[where[0]].replace(old, new)
+    return srcs
+
+
+def build_cut(kernel, tag: str, name: str, pairs) -> "CudaKernel":
+    """A copy of ``kernel``'s sources with each (text, replacement) of
+    ``pairs`` made (``cut_sources``), built into
+    build/tfhe_tpu_torch/kernel_cuts/ and loaded; its ptxas report is kept."""
+    import ctypes
+
+    from tfhe_tpu_torch.ops.cuda import _build
+
+    srcs = cut_sources(kernel, tag, name, pairs)
+    cut_dir = _build.BUILD_DIR / "kernel_cuts" / f"{tag}_{name.replace(' ', '_').replace(',', '')}"
+    cut_dir.mkdir(parents=True, exist_ok=True)
+    for f, text in srcs.items():
+        (cut_dir / f).write_text(text)
+    lib = cut_dir / f"lib{kernel.source}.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                           str(cut_dir / f"{kernel.source}.cu")], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on the cut {tag} {name!r}:\n{proc.stderr}")
+    cut = _build.CudaKernel(kernel.source, kernel.symbol, kernel.argtypes)
+    cut.ptxas_report = proc.stderr
+    cut._lib = ctypes.CDLL(str(lib))
+    cut._fn = getattr(cut._lib, cut.symbol)
+    cut._fn.argtypes, cut._fn.restype = cut.argtypes, ctypes.c_int
+    cut._lib.tfhe_cuda_error_string.argtypes = [ctypes.c_int]
+    cut._lib.tfhe_cuda_error_string.restype = ctypes.c_char_p
+    return cut
+
+
+def kernel_d_phase_clocks(nttk, p, acc0, bk_lhs, a_hat, plan=(0, 0)) -> dict:
+    """Kernel D built with phase timers (``_D_TIMERS``: thread 0 of CTA 0 sums
+    clock64() over each phase of a step, PHASES_D) under ``plan``: SM clocks
+    per step of each phase.  Its results are wrong; only the clocks are read."""
+    timed = build_cut(nttk.KERNEL, "D", "phase timers", _D_TIMERS)
+    whole = nttk.KERNEL
+    try:
+        nttk.KERNEL = timed
+        out = nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat, plan)
+    finally:
+        nttk.KERNEL = whole
+    w = out.reshape(-1)[:2 * len(PHASES_D)].cpu().numpy().astype(np.uint32).astype(np.int64)
+    steps = bk_lhs.shape[0]
+    return {name: float(lo + (hi << 32)) / steps
+            for name, lo, hi in zip(PHASES_D, w[0::2], w[1::2])}
+
+
+def kernel_d_cuts(nttk, p, acc0, bk_lhs, a_hat, plans) -> dict:
+    """The ms of Kernel D with each of CUTS_D (copies built all at once) and
+    under each of ``plans`` (samples per CTA, split), in turns with the whole kernel (whole, cuts, plans, whole),
+    2 rounds each.  A cut kernel's results are wrong and only its time is
+    read; each plan's result is held equal to the whole kernel's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(CUTS_D)) as pool:
+        built = dict(zip(CUTS_D, pool.map(
+            lambda name: build_cut(nttk.KERNEL, "D", name, CUTS_D[name]), CUTS_D)))
+    res = {f"D {name} ptxas": [ln.strip() for ln in cut.ptxas_report.splitlines()
+                               if "registers" in ln or "spill" in ln]
+           for name, cut in built.items()}
+    whole = nttk.KERNEL
+    want = nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat)
+    res["D plan"] = dict(nttk.last_plan)
+    try:
+        runs = [("whole", (0, 0)), *((name, (0, 0)) for name in built),
+                *((f"plan {pl}", pl) for pl in plans), ("whole", (0, 0))]
+        for name, plan in runs:
+            nttk.KERNEL = built.get(name, whole)
+            t = event_rounds(lambda: nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat, plan), 2)
+            res.setdefault(f"D {name}", []).extend(t)
+            log(f"Kernel D B={acc0.shape[0]}, {name}: ms {t}, plan {nttk.last_plan}")
+            if name.startswith("plan"):
+                res[f"D {name} plan"] = dict(nttk.last_plan)
+                if not torch.equal(nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat, plan), want):
+                    raise RuntimeError(f"Kernel D under {name} differs from the picked plan")
+    finally:
+        nttk.KERNEL = whole
+    return res
 
 
 def kernel_cuts(brk, p, acc0, bk, a_hat) -> dict:
@@ -247,44 +473,16 @@ def kernel_cuts(brk, p, acc0, bk, a_hat) -> dict:
     B at 'fusedb' and 'fusedb3', E at 'fusedp' and 'fusedp3', F at
     'fusedwb', G at 'fusedc'.  Each cut's ptxas report is kept, and each of
     EXACT_CUTS is held equal to the whole kernel."""
-    import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
-    from tfhe_tpu_torch.ops.cuda import _build
     from tfhe_tpu_torch.ops.decomposer import balanced_offset
 
     whole = {"B": brk.KERNEL, "E": brk.PIPE_KERNEL, "F": brk.WIDE_PIPE_KERNEL,
              "G": brk.COLS_KERNEL}
-    out = _build.BUILD_DIR / "kernel_cuts"
 
     def build(job):
         tag, name = job
-        kernel = whole[tag]
-        srcs = {f.name: f.read_text() for f in [_build.CSRC / f"{kernel.source}.cu",
-                                                *sorted(_build.CSRC.glob("*.cuh"))]}
-        for old, new in CUTS[tag][name]:
-            where = [f for f, text in srcs.items() if old in text]
-            if len(where) != 1 or srcs[where[0]].count(old) != 1:
-                raise RuntimeError(f"cut {tag} {name!r}: {old!r} is not in the sources once")
-            srcs[where[0]] = srcs[where[0]].replace(old, new)
-        cut_dir = out / f"{tag}_{name.replace(' ', '_').replace(',', '')}"
-        cut_dir.mkdir(parents=True, exist_ok=True)
-        for f, text in srcs.items():
-            (cut_dir / f).write_text(text)
-        lib = cut_dir / f"lib{kernel.source}.so"
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                               str(cut_dir / f"{kernel.source}.cu")],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the cut {tag} {name!r}:\n{proc.stderr}")
-        cut = _build.CudaKernel(kernel.source, kernel.symbol, kernel.argtypes)
-        cut.ptxas_report = proc.stderr
-        cut._lib = ctypes.CDLL(str(lib))
-        cut._fn = getattr(cut._lib, cut.symbol)
-        cut._fn.argtypes, cut._fn.restype = cut.argtypes, ctypes.c_int
-        cut._lib.tfhe_cuda_error_string.argtypes = [ctypes.c_int]
-        cut._lib.tfhe_cuda_error_string.restype = ctypes.c_char_p
-        return job, cut
+        return job, build_cut(whole[tag], tag, name, CUTS[tag][name])
 
     jobs = [(tag, name) for tag, cuts in CUTS.items() for name in cuts]
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -433,19 +631,35 @@ def main() -> int:
     if not samples:
         raise RuntimeError("nvidia-smi gave no sample inside the Kernel D window")
     clocks = sorted(x[0] for x in samples)
-    # one CTA holds samples_per_cta samples for all steps on one SM, and B=1024
-    # runs as ceil(ctas / SMs) waves of CTAs
-    plan = nttk.last_plan
-    waves = -(-plan["ctas"] // res["sms"])
-    dp4a_per_cta = plan["samples_per_cta"] * p.n * dp4a_per_sample_step(p)
-    per_sm = dp4a_per_cta * waves / (ms / 1e3)
+    # one CTA per SM holds samples_per_cta samples for all steps; B=1024 runs
+    # as waves of what the card holds at once.  The mma and key byte counts
+    # are those the counting copy of the kernel took on 4 steps of the key.
+    plan = dict(nttk.last_plan)
+    counts = kernel_d_counted(nttk, p, acc0, sk.bk_ntt_lhs[:4], a_hat[:4])
+    counted_plan = counts.pop("plan")
+    if any(counted_plan[k] != plan[k] for k in ("samples_per_cta", "split", "ctas")):
+        raise RuntimeError("Kernel D's counting copy picked another plan")
+    at_once = plan["max_active_clusters"] * plan["split"]
+    waves = -(-plan["ctas"] // at_once)
+    per_sm = counts["mma_m16n8k32_per_cta_step"] * p.n * waves / (ms / 1e3)
     res["kernelD_B1024_clocked"] = {
         "ms_per_call": ms, "samples_mhz_w": samples, "sm_mhz_min": clocks[0],
-        "sm_mhz_max": clocks[-1], "dp4a_per_s_per_sm": per_sm,
-        "dp4a_per_clk_per_sm_at_max_and_min_clock": [per_sm / (c * 1e6)
-                                                     for c in (clocks[-1], clocks[0])]}
+        "sm_mhz_max": clocks[-1], "plan": plan, "waves": waves, "counted": counts,
+        "l2_key_bytes_per_gate": counts["l2_key_bytes_per_step"] * p.n,
+        "mma_m16n8k32_per_s_per_busy_sm": per_sm,
+        "clocks_per_mma_per_subpartition_at_max_and_min_clock": [
+            c * 1e6 * SUBPARTITIONS_PER_SM / per_sm for c in (clocks[-1], clocks[0])]}
     log(f"Kernel D B=1024 under nvidia-smi: {ms} ms per call, {len(samples)} samples, "
-        f"SM clock {clocks[0]}-{clocks[-1]} MHz, {per_sm:.6e} dp4a/s per busy SM")
+        f"SM clock {clocks[0]}-{clocks[-1]} MHz, plan {plan}, {waves} waves, {counts}, "
+        f"{per_sm:.6e} m16n8k32/s per busy SM")
+    # where Kernel D's time goes: its phases' clocks, and the cuts and plans
+    for b in (1024, 64):
+        acc_b, a_b = rotation_inputs(b)
+        res[f"kernelD_B{b}_phase_clocks_per_step"] = kernel_d_phase_clocks(
+            nttk, p, acc_b, sk.bk_ntt_lhs, a_b)
+        log(f"Kernel D B={b} SM clocks per step by phase: "
+            f"{res[f'kernelD_B{b}_phase_clocks_per_step']}")
+    res["kernelD_B1024_cuts_ms"] = kernel_d_cuts(nttk, p, acc0, sk.bk_ntt_lhs, a_hat, PLANS_D)
 
     # Kernels E, F and G over the same batches, and Kernel B at key_limbs=3
     for b in KERNEL_B_BATCHES:

@@ -24,23 +24,28 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def sass_lines(lib: Path) -> list[str]:
+    """The SASS instructions of a built library (``cuobjdump -sass``), with
+    their addresses and encodings stripped."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    addr = re.compile(r"/\*[0-9a-f]{4,}\*/")  # 5 digits past 64 KiB of code
+    return [re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", ln).strip()
+            for ln in sass.splitlines() if addr.search(ln)]
+
+
 def sass_of(src: Path, lib: Path) -> tuple[list[str], list[str]]:
     """Build ``src`` into ``lib``; return its SASS instructions and the
     register counts ptxas reported."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
     from tfhe_tpu_torch.ops.cuda import _build
 
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
-    addr = re.compile(r"/\*[0-9a-f]{4}\*/")
-    body = [re.sub(r"/\*[0-9a-f]{4}\*/|/\* 0x[0-9a-f]+ \*/", "", ln).strip()
-            for ln in sass.splitlines() if addr.search(ln)]
-    return body, re.findall(r"Used (\d+) registers", proc.stderr)
+    return sass_lines(lib), re.findall(r"Used (\d+) registers", proc.stderr)
 
 
 def main() -> int:

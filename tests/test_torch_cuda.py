@@ -224,6 +224,52 @@ def test_ep_kernels_launch_on_a_second_card(cuda_device, layout):
     assert torch.equal(got.to(want.device), want)
 
 
+def second_card_cases():
+    """wrapper name -> (kernel, a function of the device giving the call)."""
+    p = get_params("test_insecure")
+
+    def whole_scan(fn, **options):
+        def call(dev):
+            acc0, bk, a_hat = whole_scan_inputs(p, 9, 175, "cpu", steps=2)
+            return lambda: fn(p, acc0.to(dev), bk.to(dev), a_hat.to(dev), **options)
+        return call
+
+    def latency(dev):
+        acc0, bk_lat, a_vhat = latency_inputs(p, 1, 3, seed=176)
+        return lambda: latk.blind_rotate_latency(p, acc0.to(dev), bk_lat.to(dev), a_vhat.to(dev))
+
+    def nttf(dev):
+        acc0, bk_lhs, a_hat = nttf_inputs(p, 9, 177, "cpu", steps=2)
+        return lambda: nttk.blind_rotate_nttf(p, acc0.to(dev), bk_lhs.to(dev), a_hat.to(dev))
+
+    return {"B": (brk.KERNEL, whole_scan(brk.blind_rotate_fused, balanced=True)),
+            "E": (brk.PIPE_KERNEL, whole_scan(brk.blind_rotate_fused_pipe)),
+            "F": (brk.WIDE_PIPE_KERNEL, whole_scan(brk.blind_rotate_fused_wide_pipe)),
+            "G": (brk.COLS_KERNEL, whole_scan(brk.blind_rotate_fused_cols)),
+            "C": (latk.KERNEL, latency), "D": (nttk.KERNEL, nttf)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["B", "E", "F", "G", "C", "D"])
+def test_whole_scan_kernels_launch_on_a_second_card(cuda_device, name):
+    """Kernels B-G, C and D launch on their tensors' card: after a launch on
+    the first card (shared memory above the 48 KB default), the same call on
+    the second card's tensors, with the first card current, runs there and
+    gives the first card's bits."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    kernel, case = second_card_cases()[name]
+    want = case(cuda_device)()
+    second = torch.device("cuda", 1)
+    before = kernel.launches
+    with torch.cuda.device(0):
+        got = case(second)()
+    torch.cuda.synchronize(second)
+    assert kernel.launches == before + 1
+    assert got.device == second
+    assert torch.equal(got.to(want.device), want)
+
+
 @pytest.mark.cuda
 def test_external_product_conv_launches_kernel_h_on_card(cuda_device, monkeypatch):
     """'conv' on CUDA tensors goes through Kernel H, never the twin, and
@@ -405,9 +451,12 @@ def test_latency_kernel_refuses_unsupported_shapes_on_card(cuda_device):
     assert latk.KERNEL.launches == before
 
 
-def nttf_inputs(p, batch, seed, device, steps=None):
-    """Random acc0, the lhs form of a random canonical key, and exponents
-    for Kernel D."""
+def nttf_inputs(p, batch, seed, device, steps=None, kind="random"):
+    """acc0, the lhs form of a random canonical key, and exponents for
+    Kernel D.  kind='worst': every key byte 0x80 (-128, the largest int8
+    products) and an accumulator that step 0 rotates by N (rot - acc =
+    -2*acc = 0xF8F8F800), whose carry-chain digits are -8 and the +B
+    anomaly 16 in turn (the largest digits)."""
     k1, n = p.glwe_dimension + 1, p.degree
     steps = steps or p.lwe_dimension
     rng = np.random.default_rng(seed)
@@ -416,32 +465,55 @@ def nttf_inputs(p, batch, seed, device, steps=None):
     acc0 = to_torch_u32(rnd_u32(rng, (batch, k1, n)), device)
     a_hat = torch.from_numpy(
         rng.integers(0, 2 * n, size=(steps, batch), dtype=np.int32)).to(device)
+    if kind == "worst":
+        bk_lhs = torch.full_like(bk_lhs, -128)
+        acc0 = to_torch_u32(np.full((batch, k1, n), 0x83838400, np.uint32), device)
+        a_hat[0] = n
     return acc0, bk_lhs, a_hat
 
 
+#: Kernel D's plan instances: (samples per CTA, split)
+NTTF_PLANS = [(1, 1), (1, 2), (1, 4), (1, 8), (2, 1), (2, 2), (2, 4), (2, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,batch,steps", [
-    ("nano", 3, None), ("test_insecure", 1, None), ("test_insecure", 7, None),
-    ("test_insecure", 64, None), ("test_insecure", 256, None), ("test_insecure", 1024, 2),
-    ("large_2048", 3, 2)])
-def test_nttf_kernel_matches_twin_on_card(cuda_device, name, batch, steps):
-    """Every samples-per-CTA instance (B=256 and 1024 take 2 and 4 on an
-    H100) and both key-limb counts (large_2048 has 4)."""
+@pytest.mark.parametrize("name,batch,steps,plan,kind", [
+    # the plans the entry point picks
+    ("nano", 3, None, (0, 0), "random"), ("test_insecure", 1, None, (0, 0), "random"),
+    ("test_insecure", 7, None, (0, 0), "random"),
+    ("test_insecure", 64, None, (0, 0), "random"),
+    ("test_insecure", 256, None, (0, 0), "random"),
+    ("test_insecure", 1024, 2, (0, 0), "random"),
+    # large_2048: 4 key limbs, key stages of chunks of rows
+    ("large_2048", 3, 2, (0, 0), "random"), ("large_2048", 5, 2, (1, 2), "random"),
+    # every samples-per-CTA value with every split, each at a batch whose
+    # last cluster is partly empty (4 samples per CTA fit only nano's shared
+    # memory)
+    *[("test_insecure", spc * split + 1, 2, (spc, split), "random")
+      for spc, split in NTTF_PLANS],
+    *[("nano", 4 * split + 1, None, (4, split), "random") for split in (1, 2, 4)],
+    # the largest digits and key bytes: the s32 sums and reductions at their bounds
+    ("test_insecure", 9, 2, (2, 4), "worst"), ("large_2048", 2, 2, (1, 1), "worst")])
+def test_nttf_kernel_matches_twin_on_card(cuda_device, name, batch, steps, plan, kind):
+    """Kernel D against its twin, one launch each, under the plans it picks
+    and every plan instance forced."""
     p = get_params(name)
-    acc0, bk_lhs, a_hat = nttf_inputs(p, batch, 80 + batch, cuda_device, steps)
+    acc0, bk_lhs, a_hat = nttf_inputs(p, batch, 80 + batch, cuda_device, steps, kind)
     before = nttk.KERNEL.launches
-    got = nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat)
+    got = nttk.blind_rotate_nttf(p, acc0, bk_lhs, a_hat, plan)
     torch.cuda.synchronize()
     assert nttk.KERNEL.launches == before + 1
-    assert nttk.last_plan["samples_per_cta"] >= 1
+    got_plan = tuple(nttk.last_plan[k] for k in ("samples_per_cta", "split"))
+    assert plan == (0, 0) or got_plan == plan
+    assert nttk.last_plan["ctas"] % nttk.last_plan["split"] == 0
     assert torch.equal(got, nttk.blind_rotate_nttf_ref(p, acc0, bk_lhs, a_hat))
 
 
 @pytest.mark.cuda
 def test_nttf_kernel_refuses_unsupported_shapes_on_card(cuda_device):
-    """N1 = 256 is above the 128 the C entry point takes (its tables would
-    not fit shared memory): it returns cudaErrorInvalidValue, the wrapper
-    raises and counts no launch."""
+    """N1 = 256: the C entry point takes N1 = 64 only (every parameter
+    set's); it returns cudaErrorInvalidValue, the wrapper raises and counts
+    no launch."""
     p = get_params("test_insecure")
     try:
         ntt.set_plan_n1(256)

@@ -269,10 +269,26 @@ def test_nttf_twin_equals_fused_twin():
 
 
 def test_kernel_tables_hold_the_transforms():
-    tabs = nttk.kernel_tables(64, "cpu").to(torch.int32)
+    """Kernel D's transform operands are the m16n8k32 A fragments of w_fwd^T
+    and w_inv^T (PTX ISA, s8 A layout: lane 4g+c holds in register 0 row g,
+    k = 4c..4c+3, in 1 row g+8, in 2 and 3 the same at k+16), rows 0-7 of a
+    tile the hi bytes and rows 8-15 the lo bytes of 8 table rows: every entry
+    is held once and hi*256 + lo gives the table back."""
+    tabs = nttk.kernel_tables(64, "cpu").to(torch.int64).numpy()
+    assert tabs.shape == (2, 2, 8, 32, 2, 4, 4)
     for pi, t in enumerate(tntt._tables(64)):
-        assert np.array_equal((tabs[pi, 0] * 256 + tabs[pi, 1]).numpy(), t["w_fwd"].T)
-        assert np.array_equal((tabs[pi, 2] * 256 + tabs[pi, 3]).numpy(), t["w_inv"].T)
+        for which, mat in enumerate((t["w_fwd"].T, t["w_inv"].T)):
+            planes = np.zeros((2, 64, 64), np.int64)
+            held = np.zeros((2, 64, 64), np.int64)
+            for tile, lane, step, reg, byte in np.ndindex(8, 32, 2, 4, 4):
+                mrow = lane // 4 + 8 * (reg % 2)  # the row of the m16 tile
+                plane, row = mrow // 8, 8 * tile + mrow % 8
+                k = 32 * step + 16 * (reg // 2) + 4 * (lane % 4) + byte
+                planes[plane, row, k] = tabs[pi, which, tile, lane, step, reg, byte]
+                held[plane, row, k] += 1
+            assert (held == 1).all()
+            assert np.array_equal(planes[0] * 256 + planes[1], mat)
+            assert (planes[1] >= -128).all() and (planes[1] < 128).all()
 
 
 def test_ntt_impls_refuse_missing_key_forms(insecure_keys):

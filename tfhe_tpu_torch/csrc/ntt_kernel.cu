@@ -1,5 +1,6 @@
 // Kernel D: the whole block-NTT blind rotation (all n CMUX steps) in one
-// launch.
+// launch, its three products on int8 tensor cores (mma.sync), the key shared
+// across a thread-block cluster.
 //
 // Replaces: tfhe_tpu/ops/pallas/ntt_kernel.py, blind_rotate_nttf (body
 // _kernel_nttf).  Per step s and sample b, with a = a_hat[s, b] mod 2N:
@@ -19,56 +20,109 @@
 // (r, j1) with r in canonical order, the twisted-circulant Z-twist folded in.
 // Every residue is exact, so the result equals impl='fused' bit for bit.
 //
-// What bounds it on the H100: integer multiply-adds.  Per sample and step
-// the forward transforms take 2*RN2*N1*N1 residue products, the per-bin
-// contraction 2*N1*CLN2*RN2 and the inverse transforms 2*CLN2*N1*N1: 3.1e6 at
-// default_128 (N1=64, N2=8, RN2=144, CLN2=72).  The residues ride in two
-// balanced bytes, as in the TPU kernel, so a forward product is two int8
-// products (the digits are single bytes) and the others four: 1.0e7 int8
-// multiply-adds per sample-step, 7.4e12 for B=1024 over 722 steps, 7.5 ms at
-// the int8 tensor-core peak.  The key (1.92 GB, 0.57 ms at 3.35 TB/s) is read
-// from device memory about once, since all CTAs walk the steps at about the
-// same pace and one step's key block (2.65 MB) sits in L2; each CTA reads the
-// block once per step from L2.  This first design runs on the CUDA cores,
-// four int8 products per __dp4a: 2.5e6 dp4a per sample-step.
+// What bounds it on the H100: per sample and step the forward transforms
+// take 2*RN2*N1*N1 int8 products, the per-bin contraction 4*N1*CLN2*RN2 and
+// the inverse transforms 4*CLN2*N1*N1, per prime (residues ride in two
+// balanced bytes, digits in one): 1.0e7 at default_128 (N1=64, N2=8,
+// RN2=144, CLN2=72), 7.4e12 for B=1024 over 722 steps, 7.5 ms at the int8
+// tensor-core peak.  Once the products run on the tensor cores the key can
+// be the wall: a step's key block is 2.65 MB, and a CTA that contracts
+// every bin must take all of it into its shared memory each step.
+// Splitting the bins over a cluster cuts each SM's intake to 1/split of
+// the block (PERF.md section 5 times a cluster of 1 against 4 and 8).
 //
-// Design: the TPU kernel absorbs the strided split m = i*N2 + j1 into dense
-// int8[N, N] transform matrices (N2 = 8 times the transform's work) because
-// Mosaic cannot relayout it; here the digits are written straight into
-// [r][j1][i] rows and each (r, j1) column gets its own [N1, N1] transform.
-// The TPU's float32-reciprocal mod becomes an exact integer % by a
-// compile-time prime.  Each CTA owns S samples (4 at default_128 and
-// B=1024, fewer for small batches) for all n steps with no
-// inter-CTA synchronisation, and keeps in shared memory their accumulators,
-// digits, transformed digits, per-bin products and the first prime's
-// residues, plus the current prime's transform tables (226 KB at S=4; S is
-// picked per batch so the waves of CTAs finish soonest).  A
-// step is eight phases between barriers: digits; then per prime forward,
-// contraction, inverse.  In every phase a thread owns a register tile over
-// all S samples (forward: 4 bins of one column; contraction: 2 key rows of
-// one bin, key read as 16-byte loads; inverse: 4 coefficients of one
-// (c, j_out) for every key limb), and the int8 operands are packed four to
-// a word along the contracted axis for __dp4a.  Rows read by the transforms
-// are padded by one word against bank conflicts.  Tensor cores (int8 mma on
-// the per-bin products), TMA staging of the key and sharing it across a
-// cluster are later work.
+// Design.  All three products are int8 mma.sync (m16n8k32, m16n8k16 for a
+// K tail of 16) on tiles whose rows 0-7 are the hi byte plane and rows 8-15
+// the lo byte plane of the same 8 rows, so that each thread's four
+// accumulators are the byte-plane products hh, hl, lh, ll (or the hi and lo
+// sums of the forward) of one output, combined, reduced and split again in
+// registers:
+//  - forward, per group of 8 bins: A = w_fwd^T's two planes (16 rows, K = i,
+//    fragments from `frags`, built by the wrapper), B = the digit rows
+//    (sample, r, j1) of 64 bytes (one per i) by ldmatrix;
+//  - contraction, per bin: A = 16 key rows (8 q's, hi and lo) of the bin's
+//    slice as stored, B = the bin's Dh rows (sample, plane), 8 columns (4
+//    samples) per n-tile, K = (r, j1);
+//  - inverse: A = w_inv^T's two planes (K = bin), B = the Ch rows (sample, q,
+//    plane) of 64 bytes (one per bin), grouped so that one thread holds
+//    every key limb lam of one (sample, c, j_out, i) and adds the lifted sum
+//    to the accumulator itself.
+// Each sum stays inside int32 with one reduction of hi*256 + lo (forward)
+// or two of (hh*256 + hl + lh)*256 + ll (contraction, inverse), by exact
+// integer % by compile-time primes.
+//
+// A thread-block cluster is `split` CTAs, each owning S samples; they
+// split the 64 bins: each transforms its own samples for every bin, then
+// sends each CTA of the cluster the Dh of that CTA's bins; each contracts
+// its own bins for all the cluster's S*split samples (so each key fragment
+// serves split/2 n-tiles) and sends each CTA the Ch of that CTA's samples,
+// which it inverts.  A transfer is one block per pair of CTAs, staged in
+// the sender's shared memory and moved by a bulk copy into the receiver's
+// (distributed shared memory), counted on the receiver's mbarrier (Dh and
+// Ch complete), which expects every sender's bytes once per prime.  The
+// sender reuses a block once its bulk copies have read it; a receiver's
+// buffers are refilled only after it has sent its own next blocks, which it
+// does after reading them.  A producer warp streams the CTA's own bins' key
+// slices, in the order they are stored, through a ring of key stages by
+// cp.async.bulk completing on mbarriers; a stage is refilled once the
+// CTA's consumers have released it.  Nine consumer warps own one of the
+// nine contraction m-tiles each at default_128 and split the forward and
+// inverse tiles.  Shared memory: accumulators, the first prime's residues
+// (int16), the digit rows, the received and outgoing Dh and Ch blocks, the
+// key stages, the barriers.  The wrapper can force the plan (samples per
+// CTA, split); otherwise the C entry point picks it per batch from the
+// card's cluster occupancy.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kP1 = 12289, kP2 = 40961;
-constexpr int kThreads = 384;
-constexpr int kQt = 2;   // key rows q per thread in the contraction
-constexpr int kPad = 4;  // bytes of padding on rows of length N1
+constexpr int kN1 = 64;        // the NTT size of every parameter set
+constexpr int kRow = 64;       // bytes of one digit or Ch row (N1 int8)
+constexpr int kWarps = 9;      // consumer warps: the contraction's m-tiles at default_128
+constexpr int kConsumers = 32 * kWarps;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kGroup = 8;      // bins per forward tile
+constexpr int kMaxOwned = 4;   // contraction m-tiles per warp: CLN2 <= 8 * 9 * 4
+constexpr int kMaxNt = 4;      // contraction n-tiles: S * split <= 16 samples
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kMaxStages = 6;  // key stages
+constexpr int kBarConsumers = 1;  // named barrier (0 is __syncthreads)
 
 struct Shape {
   int n_steps, B, C, N, levels, log_base, ignored_bits;
-  int N1, N2, R, RN2, CLN2, key_bits, inv_p1;
-  // byte offsets of the shared-memory sections
-  int off_r1, off_dig, off_dh, off_ch, off_tabf, off_tabi, off_a, smem;
+  int N2, RN2, RN2p, CLN2, L, key_bits, inv_p1;
+  // the plan: samples per CTA, CTAs of a cluster (splitting the bins), key
+  // stages, contraction m-tiles per stage, whether the outgoing Dh and Ch
+  // blocks share their room, and what follows from it
+  int S, split, stages, mcs, share, MT, nchunks, T, ngroups, bins, nt, stage_bytes;
+  // the exchange blocks: Dh and Ch one CTA sends another per prime, and
+  // their strides in the receiver (padded against bank conflicts)
+  int blk_dh, blk_ch, dhs, chs;
+  // for the divisions in the device loops: log2 of N2 and of bins, and
+  // fdiv multipliers for C, the forward's unit pairs per group and n-tiles
+  // per sample, and the inverse's triple groups
+  int lg_N2, lg_bins;
+  uint32_t m_C, m_pairs, m_nps, m_groups;
+  // byte offsets of the shared-memory sections, and the total
+  int off_r1, off_dig, off_dh, off_ch, off_out, off_out2, off_key, off_bar, off_a, smem;
 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// x / d for 0 <= x < 2^16 and 1 <= d <= 2^16, m = magic(d): a multiply
+// where the divisor is known only at run time
+__host__ __device__ inline uint32_t magic(int d) {
+  return d == 1 ? 0u : static_cast<uint32_t>((0x100000000ull + d - 1) / d);
+}
+__device__ __forceinline__ int fdiv(int x, uint32_t m) {
+  return m ? static_cast<int>(__umulhi(static_cast<uint32_t>(x), m)) : x;
+}
 
 template <int P>
 __device__ __forceinline__ int center(int x) {
@@ -78,220 +132,388 @@ __device__ __forceinline__ int center(int x) {
   return r;
 }
 
-// (hh*256 + m)*256 + ll mod P, centered, every plane reduced first
+// (hh*256 + hl + lh)*256 + ll mod P, centered: |hh| <= RN2*128*128 keeps
+// hh*256 + hl + lh inside int32 for RN2 <= 384
 template <int P>
-__device__ __forceinline__ int combine3(int hh, int m, int ll) {
-  const int x = center<P>(center<P>(hh) * 256 + center<P>(m));
-  return center<P>(x * 256 + center<P>(ll));
+__device__ __forceinline__ int combine(const int (&c)[4]) {
+  return center<P>(center<P>(c[0] * 256 + c[1] + c[2]) * 256 + c[3]);
 }
 
-// centered x -> balanced bytes x = hi*256 + lo, lo in [-128, 128)
-__device__ __forceinline__ void split2(int x, int8_t* hi, int8_t* lo) {
+// centered x -> balanced bytes x = hi*256 + lo, lo in [-128, 128); returns
+// hi in bits 8..15 and lo in bits 0..7
+__device__ __forceinline__ uint32_t split2(int x) {
   const int l = ((x + 128) & 255) - 128;
-  *lo = static_cast<int8_t>(l);
-  *hi = static_cast<int8_t>((x - l) / 256);
+  return (static_cast<uint32_t>((x - l) >> 8) & 0xFFu) << 8 | (static_cast<uint32_t>(l) & 0xFFu);
 }
 
-__device__ __forceinline__ int ld32(const int8_t* p) { return *reinterpret_cast<const int*>(p); }
-
-// Signed digits of one u32 value by the reference carry chain
-// (src/decomposer.rs:42-80), written MSB-first at out[j * stride].
-__device__ __forceinline__ void decompose(uint32_t diff, const Shape& s, int8_t* out,
-                                          int stride) {
-  const uint32_t mask = (1u << s.log_base) - 1u;
-  const int half = 1 << (s.log_base - 1);
-  const int ig = s.ignored_bits;
-  // round_value, then the chain from the first kept digit: the digits below
-  // it are zero after rounding
-  const uint32_t v = ig ? (diff >> ig) + ((diff >> (ig - 1)) & 1u) : diff;
-  int carry = 0;
-  for (int l = 0; l < s.levels; ++l) {
-    int res = static_cast<int>((v >> (s.log_base * l)) & mask) + carry;
-    const int cm = res & half;
-    res -= cm << 1;  // in [-B/2, B]: the +B anomaly stays
-    carry = cm >> (s.log_base - 1);
-    out[(s.levels - 1 - l) * stride] = static_cast<int8_t>(res);
-  }
+__device__ __forceinline__ void mma32(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                      uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// two planes [2][N1][N1] of the global tables -> shared rows of stride N1+kPad
-__device__ __forceinline__ void load_tables(int8_t* dst, const int8_t* __restrict__ src,
-                                            int N1) {
-  const int words = N1 / 4, np = N1 + kPad;
-  for (int idx = threadIdx.x; idx < 2 * N1 * words; idx += blockDim.x) {
-    const int row = idx / words, w = idx - row * words;
-    *reinterpret_cast<int*>(dst + row * np + 4 * w) = ld32(src + row * N1 + 4 * w);
-  }
+__device__ __forceinline__ void mma16(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
-// Dh[sb][bin][col] = w_fwd . d over i (mod P), stored as hi/lo byte planes.
-// A thread owns the bins bg + G*b (b < 4) of one column for all S samples.
-template <int S, int P>
-__device__ void forward(const Shape& s, const int8_t* dig, const int8_t* tabf, int8_t* dh) {
-  const int N1 = s.N1, N2 = s.N2, np = N1 + kPad, G = N1 / 4;
-  const int sample_dig = s.R * N2 * np, sample_dh = N1 * s.RN2;
-  for (int u = threadIdx.x; u < s.RN2 * G; u += blockDim.x) {
-    const int bg = u % G, col = u / G;
-    const int8_t* drow = dig + col * np;  // col = r*N2 + j1 is the row index
-    int hi[S][4], lo[S][4];
-#pragma unroll
-    for (int sb = 0; sb < S; ++sb)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) hi[sb][b] = lo[sb][b] = 0;
-    for (int i0 = 0; i0 < N1; i0 += 4) {
-      int dv[S];
-#pragma unroll
-      for (int sb = 0; sb < S; ++sb) dv[sb] = ld32(drow + sb * sample_dig + i0);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int wh = ld32(tabf + (bg + G * b) * np + i0);
-        const int wl = ld32(tabf + (N1 + bg + G * b) * np + i0);
-#pragma unroll
-        for (int sb = 0; sb < S; ++sb) {
-          hi[sb][b] = __dp4a(dv[sb], wh, hi[sb][b]);
-          lo[sb][b] = __dp4a(dv[sb], wl, lo[sb][b]);
-        }
-      }
-    }
-#pragma unroll
-    for (int sb = 0; sb < S; ++sb)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int x = center<P>(center<P>(hi[sb][b]) * 256 + center<P>(lo[sb][b]));
-        const int at = sb * sample_dh + (bg + G * b) * s.RN2 + col;
-        split2(x, dh + at, dh + S * sample_dh + at);
-      }
-  }
+// ldmatrix: lanes 8m..8m+7 give the 8 row addresses (16 bytes each) of
+// matrix m; each thread receives bytes 4*(lane%4)..+3 of row lane/4 of each
+__device__ __forceinline__ void ldm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-__device__ __forceinline__ void dot4(int xh, int xl, int kh, int kl, int& hh, int& mm,
-                                     int& ll) {
-  hh = __dp4a(xh, kh, hh);
-  mm = __dp4a(xh, kl, mm);
-  mm = __dp4a(xl, kh, mm);
-  ll = __dp4a(xl, kl, ll);
+__device__ __forceinline__ void ldm2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
 }
 
-// Ch[sb][q][bin] = Dh[sb][bin] . K[bin][q] over (r, j1) (mod P), stored as
-// hi/lo byte planes.  A thread owns kQt key rows of one bin for all S samples.
-template <int S, int P>
-__device__ void contract(const Shape& s, const int8_t* __restrict__ kprime, const int8_t* dh,
-                         int8_t* ch) {
-  const int N1 = s.N1, RN2 = s.RN2, CLN2 = s.CLN2, np = N1 + kPad;
-  const int QP = CLN2 / kQt, sample_dh = N1 * RN2, sample_ch = CLN2 * np;
-  for (int u = threadIdx.x; u < N1 * QP; u += blockDim.x) {
-    const int bin = u / QP, q0 = (u - bin * QP) * kQt;
-    const int8_t* kb = kprime + static_cast<size_t>(bin) * 2 * CLN2 * RN2;
-    const int8_t* dH = dh + bin * RN2;
-    const int8_t* dL = dH + S * sample_dh;
-    int hh[S][kQt], mm[S][kQt], ll[S][kQt];
-#pragma unroll
-    for (int sb = 0; sb < S; ++sb)
-#pragma unroll
-      for (int q = 0; q < kQt; ++q) hh[sb][q] = mm[sb][q] = ll[sb][q] = 0;
-    if ((RN2 & 15) == 0) {
-      for (int c = 0; c < RN2; c += 16) {
-        int4 kh[kQt], kl[kQt];
-#pragma unroll
-        for (int q = 0; q < kQt; ++q) {
-          kh[q] = __ldg(reinterpret_cast<const int4*>(kb + (q0 + q) * RN2 + c));
-          kl[q] = __ldg(reinterpret_cast<const int4*>(kb + (CLN2 + q0 + q) * RN2 + c));
-        }
-#pragma unroll
-        for (int sb = 0; sb < S; ++sb) {
-          const int4 xh = *reinterpret_cast<const int4*>(dH + sb * sample_dh + c);
-          const int4 xl = *reinterpret_cast<const int4*>(dL + sb * sample_dh + c);
-#pragma unroll
-          for (int q = 0; q < kQt; ++q) {
-            dot4(xh.x, xl.x, kh[q].x, kl[q].x, hh[sb][q], mm[sb][q], ll[sb][q]);
-            dot4(xh.y, xl.y, kh[q].y, kl[q].y, hh[sb][q], mm[sb][q], ll[sb][q]);
-            dot4(xh.z, xl.z, kh[q].z, kl[q].z, hh[sb][q], mm[sb][q], ll[sb][q]);
-            dot4(xh.w, xl.w, kh[q].w, kl[q].w, hh[sb][q], mm[sb][q], ll[sb][q]);
-          }
-        }
-      }
+__device__ __forceinline__ uint32_t ldm1(uint32_t addr) {
+  uint32_t r;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n" : "=r"(r) : "r"(addr));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// byte offset of 16-byte chunk `chunk` of 64-byte row `row`, the chunks
+// swizzled so that 8 consecutive rows read by one ldmatrix phase fall in
+// distinct banks
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * kRow + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ void bar_consumers() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kBarConsumers), "n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// the shared::cluster address of `p`'s offset in cluster CTA `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// the same, ordered after the arrivals of other CTAs of the cluster
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAITC:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAITC;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) global -> this
+// CTA's shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// `bytes` (a multiple of 16, 16-byte aligned) of this CTA's shared memory
+// into another's (a shared::cluster address), counted on its mbarrier
+// `bar` (in the same CTA)
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, const void* src, int bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// this thread's bulk copies so far form a group; wait until every group's
+// source has been read
+__device__ __forceinline__ void bulk_commit_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's generic-proxy shared-memory writes, made visible to the
+// async proxy (the bulk copies) after a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The producer (one thread): every key stage of the launch, in order: the
+// slices of this CTA's bins (cluster CTA gb owns bins gb*bins ..).
+__device__ void produce(const Shape& s, const int8_t* __restrict__ bk, int8_t* keys,
+                        uint64_t* full, uint64_t* consumed) {
+  const int gb = cluster_rank();
+  const int RN2 = s.RN2, CLN2 = s.CLN2;
+  const size_t slice_bytes = static_cast<size_t>(2) * CLN2 * RN2;
+  const int total = 2 * s.bins * s.nchunks * s.n_steps;
+  // stage b in its use u; the slice (step, prime, own bin bl) and its chunk
+  int b = 0, u = 0, bl = 0, chunk = 0;
+  size_t step_prime = 0;
+  for (int t = 0; t < total; ++t) {
+    if (u > 0) mbar_wait(consumed + b, (u - 1) & 1);  // the consumers left use u-1
+    const int8_t* src = bk + (step_prime * kN1 + gb * s.bins + bl) * slice_bytes;
+    int8_t* dst = keys + b * s.stage_bytes;
+    const int q0 = chunk * 8 * s.mcs, rows = min(8 * s.mcs, CLN2 - q0);
+    mbar_expect(full + b, 2 * rows * RN2);
+    if (s.nchunks == 1) {
+      bulk_copy(dst, src, 2 * CLN2 * RN2, full + b);
     } else {
-      for (int c = 0; c < RN2; c += 4) {
-        int kh[kQt], kl[kQt];
-#pragma unroll
-        for (int q = 0; q < kQt; ++q) {
-          kh[q] = __ldg(reinterpret_cast<const int*>(kb + (q0 + q) * RN2 + c));
-          kl[q] = __ldg(reinterpret_cast<const int*>(kb + (CLN2 + q0 + q) * RN2 + c));
-        }
-#pragma unroll
-        for (int sb = 0; sb < S; ++sb) {
-          const int xh = ld32(dH + sb * sample_dh + c), xl = ld32(dL + sb * sample_dh + c);
-#pragma unroll
-          for (int q = 0; q < kQt; ++q)
-            dot4(xh, xl, kh[q], kl[q], hh[sb][q], mm[sb][q], ll[sb][q]);
-        }
-      }
+      bulk_copy(dst, src + q0 * RN2, rows * RN2, full + b);
+      bulk_copy(dst + rows * RN2, src + (CLN2 + q0) * RN2, rows * RN2, full + b);
     }
-#pragma unroll
-    for (int sb = 0; sb < S; ++sb)
-#pragma unroll
-      for (int q = 0; q < kQt; ++q) {
-        const int at = sb * sample_ch + (q0 + q) * np + bin;
-        split2(combine3<P>(hh[sb][q], mm[sb][q], ll[sb][q]), ch + at, ch + S * sample_ch + at);
-      }
+    if (++b == s.stages) b = 0, ++u;
+    if (++chunk == s.nchunks && (chunk = 0, ++bl == s.bins)) bl = 0, ++step_prime;
   }
 }
 
-// res[q][i] = w_inv . Ch[q] over bins (mod P) for q = (c*L + lam)*N2 + j_out.
-// A thread owns the coefficients i = ig + G*t (t < 4) of one (sample, c,
-// j_out) for every lam.  The first prime's residues go to r1; the second
-// prime lifts them by CRT and adds sum_lam S << (key_bits*lam) to acc.
-template <int S, int L, int P, bool kLift>
-__device__ void inverse(const Shape& s, const int8_t* ch, const int8_t* tabi, int16_t* r1,
-                        uint32_t* acc) {
-  const int N1 = s.N1, N2 = s.N2, C = s.C, CLN2 = s.CLN2, np = N1 + kPad, G = N1 / 4;
-  const int sample_ch = CLN2 * np;
-  for (int u = threadIdx.x; u < S * C * N2 * G; u += blockDim.x) {
-    const int ig = u % G;
-    int rest = u / G;
-    const int jout = rest % N2;
-    rest /= N2;
-    const int c = rest % C, sb = rest / C;
-    const int q0 = c * L * N2 + jout;  // q of lam = 0; lam steps by N2 rows
-    const int8_t* cH = ch + sb * sample_ch + q0 * np;
-    const int8_t* cL = cH + S * sample_ch;
-    int hh[L][4], mm[L][4], ll[L][4];
+// Dh of this CTA's S samples for all 64 bins into the outgoing blocks
+// `out`: [owner][own bin of the owner][sample, plane][RN2p], one block of
+// blk_dh bytes per CTA of the cluster (the owner of the bins).  A unit is one
+// group of 8 bins (one m-tile: the bins' hi and lo table rows, K = i) and
+// one n-tile of 8 digit rows of one sample; a warp runs two units at once.
+template <int S, int P>
+__device__ void forward(const Shape& s, const uint4* __restrict__ frag, const int8_t* dig,
+                        int8_t* out, int warp, int lane) {
+  const int gid = lane >> 2, tig = lane & 3, RN2p = s.RN2p, ntl = S * RN2p / 8;
+  const int pairs = (ntl + 1) / 2, units = (kN1 / kGroup) * pairs;  // unit pairs
+  // the fragments come from L2 (shared memory leaves L1 little room), so
+  // the next pair's are loaded while this one computes
+  int ng = fdiv(warp, s.m_pairs);
+  uint4 na = frag[(ng * 32 + lane) * 2];
+  uint4 nb = frag[(ng * 32 + lane) * 2 + 1];
+  for (int up = warp; up < units; up += kWarps) {
+    const int g = ng, nt0 = 2 * (up - g * pairs);
+    const uint4 fa = na, fb = nb;
+    ng = fdiv(min(up + kWarps, units - 1), s.m_pairs);
+    na = frag[(ng * 32 + lane) * 2];
+    nb = frag[(ng * 32 + lane) * 2 + 1];
+    uint32_t b[2][4];
+    int c[2][4] = {};
 #pragma unroll
-    for (int lam = 0; lam < L; ++lam)
+    for (int h = 0; h < 2; ++h)
+      ldm4(b[h], smem_addr(dig + swz(min(nt0 + h, ntl - 1) * 8 + (lane & 7), lane >> 3)));
 #pragma unroll
-      for (int t = 0; t < 4; ++t) hh[lam][t] = mm[lam][t] = ll[lam][t] = 0;
-    for (int k0 = 0; k0 < N1; k0 += 4) {
-      int wh[4], wl[4];
+    for (int h = 0; h < 2; ++h) mma32(c[h], fa.x, fa.y, fa.z, fa.w, b[h][0], b[h][1]);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        wh[t] = ld32(tabi + (ig + G * t) * np + k0);
-        wl[t] = ld32(tabi + (N1 + ig + G * t) * np + k0);
+    for (int h = 0; h < 2; ++h) mma32(c[h], fb.x, fb.y, fb.z, fb.w, b[h][2], b[h][3]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (nt0 + h >= ntl) break;
+      // rows gid: hi plane of bin 8g+gid, gid+8: its lo plane; |hi| <= 64*80*64
+      const uint32_t x0 = split2(center<P>(c[h][0] * 256 + c[h][2]));
+      const uint32_t x1 = split2(center<P>(c[h][1] * 256 + c[h][3]));
+      // lanes tig, tig^1 trade halves: the even one stores the hi bytes of
+      // their 4 columns, the odd one the lo bytes
+      const uint32_t hi = x0 >> 8 | (x1 & 0xFF00u), lo = (x0 & 0xFFu) | (x1 & 0xFFu) << 8;
+      const uint32_t got = __shfl_xor_sync(0xFFFFFFFFu, tig & 1 ? hi : lo, 1);
+      const uint32_t word = tig & 1 ? got | lo << 16 : hi | got << 16;
+      const int sb = fdiv(nt0 + h, s.m_nps), col = (nt0 + h) * 8 - sb * RN2p + 4 * (tig >> 1);
+      const int bin = g * kGroup + gid;  // the owner's blocks follow one another
+      *reinterpret_cast<uint32_t*>(out + (bin * 2 * S + 2 * sb + (tig & 1)) * RN2p + col) = word;
+    }
+  }
+}
+
+// Ch of one own bin (bl of this CTA's bins) for the cluster's S*split
+// samples, those of this warp's m-tiles (warp + kWarps*j) in the stage, 4
+// bins packed per 32-bit store into the outgoing blocks `out`: [owner]
+// [sample, q, plane][own bin], one block of blk_ch bytes per cluster CTA.  `dh`
+// holds the received Dh: [sender][own bin][sample, plane][RN2p] at stride
+// dhs per sender.
+template <int S, int P>
+__device__ __forceinline__ void contract(const Shape& s, const int8_t* stage, int chunk,
+                                         const int8_t* dh, int8_t* out, int bl, int warp,
+                                         int lane, uint32_t (&ph)[kMaxOwned][kMaxNt],
+                                         uint32_t (&pl)[kMaxOwned][kMaxNt]) {
+  const int gid = lane >> 2, tig = lane & 3, RN2 = s.RN2, RN2p = s.RN2p, CLN2 = s.CLN2;
+  const int q0 = chunk * 8 * s.mcs, rows = min(8 * s.mcs, CLN2 - q0);
+  const bool ldm = (RN2 & 15) == 0;
+  const int nk32 = RN2p / 32, tail = RN2p & 16, slots = S * s.split;
+  // this lane's B row (ldmatrix) in each n-tile: column n = slot*2 + plane,
+  // slot = sender*S + sample
+  uint32_t brow[kMaxNt];
+#pragma unroll
+  for (int nt = 0; nt < kMaxNt; ++nt) {
+    const int n = 8 * nt + (lane & 7), slot = n < 2 * slots ? n >> 1 : 0;
+    brow[nt] = smem_addr(dh + (slot / S) * s.dhs +
+                         (bl * 2 * S + 2 * (slot % S) + (n & 1)) * RN2p);
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxOwned; ++j) {
+    const int mt = warp + kWarps * j;
+    if (mt >= s.MT) break;
+    if (mt < chunk * s.mcs || mt >= (chunk + 1) * s.mcs) continue;
+    // this lane's A rows: ldmatrix row (lane & 7) of the hi or lo plane,
+    // and for plain loads row gid; rows past the stage repeat its last
+    const int base = mt * 8 - q0;
+    const int lq = min(base + (lane & 7), rows - 1), gq = min(base + gid, rows - 1);
+    const int8_t* arow = stage + ((lane >> 3) & 1 ? rows + lq : lq) * RN2 + 16 * (lane >> 4);
+    const int8_t* ahi = stage + gq * RN2 + 4 * tig;
+    const int8_t* alo = stage + (rows + gq) * RN2 + 4 * tig;
+    int c[kMaxNt][4] = {};
+    for (int ks = 0; ks < nk32; ++ks) {
+      const int k0 = 32 * ks;
+      uint32_t a[4];
+      if (ldm) {
+        ldm4(a, smem_addr(arow + k0));
+      } else {
+        a[0] = ld32(ahi + k0), a[1] = ld32(alo + k0);
+        a[2] = ld32(ahi + k0 + 16), a[3] = ld32(alo + k0 + 16);
       }
 #pragma unroll
-      for (int lam = 0; lam < L; ++lam) {
-        const int xh = ld32(cH + lam * N2 * np + k0), xl = ld32(cL + lam * N2 * np + k0);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) dot4(xh, xl, wh[t], wl[t], hh[lam][t], mm[lam][t], ll[lam][t]);
+      for (int nt = 0; nt < kMaxNt; ++nt) {
+        if (nt >= s.nt) break;
+        uint32_t b[2];
+        ldm2(b, brow[nt] + k0 + 16 * ((lane >> 3) & 1));
+        mma32(c[nt], a[0], a[1], a[2], a[3], b[0], b[1]);
       }
     }
-    uint32_t delta[4] = {0u, 0u, 0u, 0u};
+    if (tail) {
+      const int k0 = 32 * nk32;
+      uint32_t a[2];
+      if (ldm) {
+        ldm2(a, smem_addr(arow + k0));
+      } else {
+        a[0] = ld32(ahi + k0), a[1] = ld32(alo + k0);
+      }
 #pragma unroll
-    for (int lam = 0; lam < L; ++lam)
+      for (int nt = 0; nt < kMaxNt; ++nt) {
+        if (nt >= s.nt) break;
+        mma16(c[nt], a[0], a[1], ldm1(brow[nt] + k0));
+      }
+    }
+    const int sh = 8 * (bl & 3), q = mt * 8 + gid;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int res = combine3<P>(hh[lam][t], mm[lam][t], ll[lam][t]);
-        int16_t* r1p = r1 + (sb * CLN2 + q0 + lam * N2) * N1 + ig + G * t;
+    for (int nt = 0; nt < kMaxNt; ++nt) {
+      if (nt >= s.nt) break;
+      const uint32_t x = split2(combine<P>(c[nt]));
+      ph[j][nt] = (bl & 3 ? ph[j][nt] : 0u) | (x >> 8) << sh;
+      pl[j][nt] = (bl & 3 ? pl[j][nt] : 0u) | (x & 0xFFu) << sh;
+      const int slot = 4 * nt + tig;
+      if ((bl & 3) == 3 && slot < slots && q < CLN2) {
+        const int owner = slot / S;
+        int8_t* at =
+            out + owner * s.blk_ch + ((slot - owner * S) * CLN2 + q) * 2 * s.bins + (bl & ~3);
+        *reinterpret_cast<uint32_t*>(at) = ph[j][nt];
+        *reinterpret_cast<uint32_t*>(at + s.bins) = pl[j][nt];
+      }
+    }
+  }
+}
+
+// res_p[q][i] = w_inv . Ch[q] over bins.  A unit is one m-tile of 8 i's and
+// one group of 4 (sample, c, j_out) triples, whose L n-tiles (one per key
+// limb lam) give each thread every lam of its (triple, i).  `ch` holds the
+// received Ch: [sender][sample, q, plane][sender's bin] at stride chs per
+// sender.  The first prime's residues go to r1; the second prime lifts them
+// by CRT and adds sum_lam S << (key_bits*lam) to acc.
+template <int S, int L, int P, bool kLift>
+__device__ void inverse(const Shape& s, const uint4* __restrict__ frag, const int8_t* ch,
+                        int16_t* r1, uint32_t* acc, int warp, int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const int N2 = s.N2, C = s.C, CLN2 = s.CLN2, T = s.T, ngroups = s.ngroups, bins = s.bins;
+  // the fragments come from L2 (shared memory leaves L1 little room), so
+  // the next unit's are loaded while this one computes
+  int nmt = fdiv(warp, s.m_groups);
+  uint4 na = frag[(nmt * 32 + lane) * 2];
+  uint4 nb = frag[(nmt * 32 + lane) * 2 + 1];
+  for (int un = warp; un < 8 * ngroups; un += kWarps) {
+    const int mt = nmt, u = un - mt * ngroups;
+    const uint4 fa = na, fb = nb;
+    nmt = fdiv(min(un + kWarps, 8 * ngroups - 1), s.m_groups);
+    na = frag[(nmt * 32 + lane) * 2];
+    nb = frag[(nmt * 32 + lane) * 2 + 1];
+    // this lane's B column: triple tl, plane gid & 1; its 4 registers hold
+    // bins 4*tig + 16*r, r < 4, each inside one sender's block
+    const int tl = min(4 * u + (gid >> 1), T - 1);
+    const int sp = tl >> s.lg_N2, sl = fdiv(sp, s.m_C);  // triple = (sl, cl, jl)
+    const int jl = tl & (N2 - 1), cl = sp - sl * C;
+    const int8_t* col[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = 16 * r + 4 * tig;
+      col[r] = ch + (k >> s.lg_bins) * s.chs + (k & (bins - 1)) +
+               (sl * CLN2 * 2 + (gid & 1)) * bins;
+    }
+    const int to = 4 * u + tig, i = mt * 8 + gid;
+    uint32_t delta = 0u;
+#pragma unroll
+    for (int lam = 0; lam < L; ++lam) {
+      const int off = ((cl * L + lam) * N2 + jl) * 2 * bins;  // row q
+      int c[4] = {0, 0, 0, 0};
+      mma32(c, fa.x, fa.y, fa.z, fa.w, ld32(col[0] + off), ld32(col[1] + off));
+      mma32(c, fb.x, fb.y, fb.z, fb.w, ld32(col[2] + off), ld32(col[3] + off));
+      const int res = combine<P>(c);
+      if (to < T) {
+        int16_t* r1p = r1 + (to * L + lam) * (kN1 + 2) + i;
         if (!kLift) {
           *r1p = static_cast<int16_t>(res);
         } else {
           const int a = *r1p;
           const int sv = a + kP1 * center<kP2>((res - a) * s.inv_p1);  // |.| < 2^31
-          delta[t] += static_cast<uint32_t>(sv) << (s.key_bits * lam);
+          delta += static_cast<uint32_t>(sv) << (s.key_bits * lam);
         }
       }
-    if (kLift) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[(sb * C + c) * s.N + (ig + G * t) * N2 + jout] += delta[t];
+    }
+    if (kLift && to < T) {
+      const int po = to >> s.lg_N2, so = fdiv(po, s.m_C);
+      const int jo = to & (N2 - 1), co = po - so * C;
+      acc[(so * C + co) * s.N + i * N2 + jo] += delta;
     }
   }
 }
@@ -299,88 +521,252 @@ __device__ void inverse(const Shape& s, const int8_t* ch, const int8_t* tabi, in
 template <int S, int L>
 __global__ void __launch_bounds__(kThreads, 1)
 ntt_kernel(const uint32_t* __restrict__ acc0, const int8_t* __restrict__ bk,
-           const int32_t* __restrict__ a_hat, const int8_t* __restrict__ tables,
+           const int32_t* __restrict__ a_hat, const uint4* __restrict__ frags,
            uint32_t* __restrict__ out, Shape s) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int N = s.N, CN = s.C * N, N1 = s.N1, N2 = s.N2, np = N1 + kPad;
-  const int mask2 = 2 * N - 1;
-  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);              // [S][C][N]
-  int16_t* r1 = reinterpret_cast<int16_t*>(smem + s.off_r1);      // [S][CLN2][N1]
-  int8_t* dig = reinterpret_cast<int8_t*>(smem + s.off_dig);      // [S][R][N2][np]
-  int8_t* dh = reinterpret_cast<int8_t*>(smem + s.off_dh);        // [2][S][N1][RN2]
-  int8_t* ch = reinterpret_cast<int8_t*>(smem + s.off_ch);        // [2][S][CLN2][np]
-  int8_t* tabf = reinterpret_cast<int8_t*>(smem + s.off_tabf);    // [2][N1 bin][np i]
-  int8_t* tabi = reinterpret_cast<int8_t*>(smem + s.off_tabi);    // [2][N1 i][np bin]
-  int* a_s = reinterpret_cast<int*>(smem + s.off_a);              // [S]
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = s.N, CN = s.C * N, N2 = s.N2, RN2p = s.RN2p, mask2 = 2 * N - 1;
+  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);             // [S][C][N]
+  int16_t* r1 = reinterpret_cast<int16_t*>(smem + s.off_r1);     // [T][L][N1+2]
+  int8_t* dig = reinterpret_cast<int8_t*>(smem + s.off_dig);     // [S*RN2p][64], swizzled
+  int8_t* dh = reinterpret_cast<int8_t*>(smem + s.off_dh);       // [split][dhs]: Dh received
+  int8_t* ch = reinterpret_cast<int8_t*>(smem + s.off_ch);       // [split][chs]: Ch received
+  int8_t* dh_out = reinterpret_cast<int8_t*>(smem + s.off_out);  // [split][blk_dh]: Dh sent
+  int8_t* ch_out = reinterpret_cast<int8_t*>(smem + s.off_out2); // [split][blk_ch]: Ch sent
+  int8_t* keys = reinterpret_cast<int8_t*>(smem + s.off_key);    // [stages][stage_bytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + s.off_bar);  // [stages] each
+  uint64_t* consumed = full + s.stages;
+  uint64_t* dh_ready = consumed + s.stages;  // this CTA's Dh is complete
+  uint64_t* ch_ready = dh_ready + 1;         // this CTA's Ch is complete
+  int* a_s = reinterpret_cast<int*>(smem + s.off_a);             // [S]
 
-  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gb = cluster_rank();
   const int b0 = blockIdx.x * S;
-  const int nb = min(S, s.B - b0);
-  const size_t table = static_cast<size_t>(N1) * N1;  // one plane
-  const size_t prime_key = static_cast<size_t>(N1) * 2 * s.CLN2 * s.RN2;
+  const int nb = min(S, s.B - b0);  // <= 0 in the spare CTAs of the last cluster
 
-  for (int idx = tid; idx < S * CN; idx += nthr)
-    acc[idx] = idx / CN < nb ? acc0[static_cast<size_t>(b0) * CN + idx] : 0u;
-
-  for (int step = 0; step < s.n_steps; ++step) {
-    const int8_t* kstep = bk + static_cast<size_t>(step) * 2 * prime_key;
-    if (tid < S)
-      a_s[tid] = tid < nb ? (a_hat[static_cast<size_t>(step) * s.B + b0 + tid] & mask2) : 0;
-    load_tables(tabf, tables, N1);  // w_fwd planes of the first prime
-    __syncthreads();
-    for (int idx = tid; idx < S * CN; idx += nthr) {
-      const int sb = idx / CN, rem = idx - sb * CN;
-      const int p = rem / N, m = rem - p * N;
-      const int src = (m - a_s[sb]) & mask2;
-      uint32_t rot = acc[sb * CN + p * N + (src & (N - 1))];
-      if (src >= N) rot = 0u - rot;
-      const int i = m / N2, j1 = m - i * N2;
-      decompose(rot - acc[idx], s, dig + ((sb * s.R + p * s.levels) * N2 + j1) * np + i,
-                N2 * np);
+  if (tid == 0) {
+    for (int b = 0; b < s.stages; ++b) {
+      mbar_init(full + b, 1);
+      mbar_init(consumed + b, kWarps);
     }
-    __syncthreads();
-    forward<S, kP1>(s, dig, tabf, dh);
-    __syncthreads();
-    contract<S, kP1>(s, kstep, dh, ch);
-    load_tables(tabi, tables + 2 * table, N1);  // w_inv planes, first prime
-    load_tables(tabf, tables + 4 * table, N1);  // w_fwd planes, second prime
-    __syncthreads();
-    inverse<S, L, kP1, false>(s, ch, tabi, r1, acc);
-    __syncthreads();
-    forward<S, kP2>(s, dig, tabf, dh);
-    __syncthreads();
-    contract<S, kP2>(s, kstep + prime_key, dh, ch);
-    load_tables(tabi, tables + 6 * table, N1);  // w_inv planes, second prime
-    __syncthreads();
-    inverse<S, L, kP2, true>(s, ch, tabi, r1, acc);
-    __syncthreads();
+    mbar_init(dh_ready, 1);
+    mbar_init(ch_ready, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int idx = tid; idx < nb * CN; idx += nthr)
-    out[static_cast<size_t>(b0) * CN + idx] = acc[idx];
+  for (int idx = tid; idx < S * CN; idx += kThreads)
+    acc[idx] = idx / CN < nb ? acc0[static_cast<size_t>(b0) * CN + idx] : 0u;
+  for (int idx = tid; idx < S * RN2p * kRow / 16; idx += kThreads)
+    reinterpret_cast<uint4*>(dig)[idx] = make_uint4(0u, 0u, 0u, 0u);  // rows past RN2 stay 0
+  __syncthreads();
+  cluster_sync();  // every CTA's barriers exist before any copy or remote access
+
+  if (warp == kWarps) {
+    if (lane == 0) produce(s, bk, keys, full, consumed);
+  } else {
+    const int levels = s.levels, lb = s.log_base, ig = s.ignored_bits;
+    const uint32_t dmask = (1u << lb) - 1u;
+    const int half = 1 << (lb - 1);
+    // the cluster's exchange: this CTA's block of `sent` for each CTA of the
+    // cluster into its buffer `in` (at this CTA's place), counted on its
+    // `ready`; then this CTA waits until its own `ready` has all `bytes`
+    auto exchange = [&](int8_t* sent, int blk, int8_t* in, int stride, uint64_t* ready,
+                        int bytes, int phase) {
+      fence_proxy_async();  // the consumers' writes of `sent`, for the bulk copies
+      bar_consumers();
+      if (tid == 0) {
+        for (int peer = 0; peer < s.split; ++peer)
+          bulk_to_peer(cluster_addr(in + gb * stride, peer), sent + peer * blk, blk,
+                       cluster_addr(ready, peer));
+        if (s.share) bulk_commit_wait_read();  // `sent` is shared by Dh and Ch
+        else bulk_commit();
+        mbar_expect(ready, bytes);
+      }
+      if (s.share) bar_consumers();
+      mbar_wait_cluster(ready, phase);
+    };
+    int kb = 0, kpar = 0;  // the key stage to consume next, and its phase parity
+    for (int step = 0; step < s.n_steps; ++step) {
+      if (tid < S)
+        a_s[tid] = tid < nb ? (a_hat[static_cast<size_t>(step) * s.B + b0 + tid] & mask2) : 0;
+      bar_consumers();
+      // digits: rows (sample, r*N2 + j1), byte i of m = i*N2 + j1; a thread
+      // takes i = 4*i4 .. +3 of one (sample, poly, j1) and stores a word per row
+      for (int idx = tid; idx < S * s.C * N2 * (kN1 / 4); idx += kConsumers) {
+        const int j1 = idx & (N2 - 1), rest = idx / N2;  // N2 is a power of two
+        const int i4 = rest & (kN1 / 4 - 1), sp = rest / (kN1 / 4);  // sp = sample*C + poly
+        const int sb = fdiv(sp, s.m_C);
+        const uint32_t* a = acc + sp * N;
+        uint32_t v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int m = (4 * i4 + k) * N2 + j1;
+          const int src = (m - a_s[sb]) & mask2;
+          uint32_t rot = a[src & (N - 1)];
+          if (src >= N) rot = 0u - rot;
+          const uint32_t diff = rot - a[m];
+          // round_value, then the reference carry chain
+          // (src/decomposer.rs:42-80) from the first kept digit
+          v[k] = ig ? (diff >> ig) + ((diff >> (ig - 1)) & 1u) : diff;
+        }
+        int carry[4] = {0, 0, 0, 0};
+        for (int l = 0; l < levels; ++l) {
+          uint32_t word = 0u;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            int res = static_cast<int>((v[k] >> (lb * l)) & dmask) + carry[k];
+            const int cm = res & half;
+            res -= cm << 1;  // in [-B/2, B]: the +B anomaly stays
+            carry[k] = cm >> (lb - 1);
+            word |= (static_cast<uint32_t>(res) & 0xFFu) << (8 * k);
+          }
+          // MSB-first: level l is row levels-1-l of the poly
+          const int row = sb * RN2p + ((sp - sb * s.C) * levels + levels - 1 - l) * N2 + j1;
+          *reinterpret_cast<uint32_t*>(dig + swz(row, i4 >> 2) + 4 * (i4 & 3)) = word;
+        }
+      }
+      bar_consumers();
+#pragma unroll
+      for (int prime = 0; prime < 2; ++prime) {
+        const int phase = (2 * step + prime) & 1;
+        if (prime == 0) forward<S, kP1>(s, frags, dig, dh_out, warp, lane);
+        else forward<S, kP2>(s, frags + 2 * 8 * 64, dig, dh_out, warp, lane);
+        exchange(dh_out, s.blk_dh, dh, s.dhs, dh_ready, 128 * S * RN2p, phase);
+        uint32_t ph[kMaxOwned][kMaxNt] = {}, pl[kMaxOwned][kMaxNt] = {};
+        for (int bl = 0; bl < s.bins; ++bl) {
+          for (int chunk = 0; chunk < s.nchunks; ++chunk) {
+            const int b = kb, parity = kpar;
+            if (++kb == s.stages) kb = 0, kpar ^= 1;
+            mbar_wait(full + b, parity);
+            const int8_t* stage = keys + b * s.stage_bytes;
+            if (prime == 0)
+              contract<S, kP1>(s, stage, chunk, dh, ch_out, bl, warp, lane, ph, pl);
+            else
+              contract<S, kP2>(s, stage, chunk, dh, ch_out, bl, warp, lane, ph, pl);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(consumed + b);
+          }
+        }
+        exchange(ch_out, s.blk_ch, ch, s.chs, ch_ready, 128 * S * s.CLN2, phase);
+        if (prime == 0)
+          inverse<S, L, kP1, false>(s, frags + 8 * 64, ch, r1, acc, warp, lane);
+        else
+          inverse<S, L, kP2, true>(s, frags + 3 * 8 * 64, ch, r1, acc, warp, lane);
+        // every read of Ch (and of acc) is done before the next Dh lets a
+        // peer refill it; the bulk copies have read the outgoing blocks
+        if (tid == 0) bulk_commit_wait_read();
+        bar_consumers();
+      }
+    }
+    for (int idx = tid; idx < nb * CN; idx += kConsumers)
+      out[static_cast<size_t>(b0) * CN + idx] = acc[idx];
+  }
+  cluster_sync();  // no CTA leaves while a peer may still write to it
 }
 
-int align16(int x) { return (x + 15) & ~15; }
+int align_up(int x, int a) { return (x + a - 1) / a * a; }
 
-// the shared-memory layout for S samples per CTA; returns its size in bytes
-int layout(Shape& s, int S) {
-  const int np = s.N1 + kPad;
-  int off = align16(S * s.C * s.N * 4);
+// the shared-memory layout of the plan in s; returns its size in bytes
+int layout(Shape& s) {
+  const int S = s.S;
+  s.MT = (s.CLN2 + 7) / 8;
+  s.nchunks = (s.MT + s.mcs - 1) / s.mcs;
+  s.T = S * s.C * s.N2;
+  s.ngroups = (s.T + 3) / 4;
+  s.bins = kN1 / s.split;
+  s.nt = (2 * S * s.split + 7) / 8;
+  s.blk_dh = s.bins * 2 * S * s.RN2p;
+  s.blk_ch = S * s.CLN2 * 2 * s.bins;
+  // senders' blocks shifted 32*S and 64 bytes apart: the rows of one
+  // ldmatrix (Dh) or LDS phase (Ch) from two senders fall in other banks
+  s.dhs = s.blk_dh + 32 * S;
+  s.chs = s.blk_ch + 64;
+  s.lg_N2 = __builtin_ctz(s.N2);
+  s.lg_bins = __builtin_ctz(s.bins);
+  s.m_C = magic(s.C);
+  s.m_pairs = magic((S * s.RN2p / 8 + 1) / 2);
+  s.m_nps = magic(s.RN2p / 8);
+  s.m_groups = magic(s.ngroups);
+  s.stage_bytes = align_up(2 * std::min(8 * s.mcs, s.CLN2) * s.RN2 + 16, 128);
+  int off = align_up(S * s.C * s.N * 4, 128);
   s.off_r1 = off;
-  off += align16(S * s.CLN2 * s.N1 * 2);
+  off += align_up(s.T * s.L * (kN1 + 2) * 2, 128);
   s.off_dig = off;
-  off += align16(S * s.R * s.N2 * np);
+  off += align_up(S * s.RN2p * kRow, 128);
   s.off_dh = off;
-  off += align16(2 * S * s.N1 * s.RN2);
+  off += align_up(s.split * s.dhs, 128);
   s.off_ch = off;
-  off += align16(2 * S * s.CLN2 * np);
-  s.off_tabf = off;
-  off += align16(2 * s.N1 * np);
-  s.off_tabi = off;
-  off += align16(2 * s.N1 * np);
+  off += align_up(s.split * s.chs, 128);
+  s.off_out = off;  // the outgoing Dh, and Ch after it or in its place
+  s.off_out2 = s.share ? off : off + align_up(s.split * s.blk_dh, 128);
+  off = s.off_out2 + align_up(s.split * (s.share ? std::max(s.blk_dh, s.blk_ch) : s.blk_ch), 128);
+  s.off_key = off;
+  off += s.stages * s.stage_bytes;
+  s.off_bar = off;
+  off += align_up((2 * s.stages + 2) * 8, 16);
   s.off_a = off;
-  off += align16(S * 4);
+  off += align_up(S * 4, 16);
   s.smem = off;
   return off;
+}
+
+// the key stages, m-tiles per stage and sharing of the outgoing blocks for
+// the plan in s: as many stages (3 to kMaxStages) of whole bin slices as
+// fit with separate outgoing blocks, else (2 to kMaxStages) with the Dh and
+// Ch blocks sharing their room, else two stages of as many m-tiles as fit;
+// false if one m-tile per stage does not
+bool fit_stages(Shape& s, int budget) {
+  const int MT = (s.CLN2 + 7) / 8;
+  s.mcs = MT;
+  for (s.share = 0; s.share <= 1; ++s.share)
+    for (s.stages = kMaxStages; s.stages >= 3 - s.share; --s.stages)
+      if (layout(s) <= budget) return true;
+  s.share = 1;
+  s.stages = 2;
+  if ((s.RN2 & 15) != 0) return false;  // a chunk's two copies must be 16-byte pieces
+  for (s.mcs = MT - 1; s.mcs >= 1; --s.mcs)
+    if (layout(s) <= budget) return true;
+  return false;
+}
+
+template <int S, int L>
+cudaError_t configure(const Shape& s, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                      int* active) {
+  cudaError_t err = cudaFuncSetAttribute(ntt_kernel<S, L>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem);
+  if (err != cudaSuccess) return err;
+  const int clusters = ((s.B + S - 1) / S + s.split - 1) / s.split;
+  cfg = {};
+  cfg.gridDim = dim3(clusters * s.split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = s.smem;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = s.split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(active, ntt_kernel<S, L>, &cfg);
+}
+
+template <int L>
+cudaError_t configure_s(const Shape& s, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                        int* active) {
+  if (s.S == 4) return configure<4, L>(s, cfg, attr, active);
+  if (s.S == 2) return configure<2, L>(s, cfg, attr, active);
+  return configure<1, L>(s, cfg, attr, active);
+}
+
+template <int L>
+cudaError_t launch_s(const Shape& s, cudaLaunchConfig_t& cfg, const void* acc0, const void* bk,
+                     const void* a_hat, const void* frags, void* out) {
+  const auto args = [&](auto kernel) {
+    return cudaLaunchKernelEx(&cfg, kernel, static_cast<const uint32_t*>(acc0),
+                              static_cast<const int8_t*>(bk), static_cast<const int32_t*>(a_hat),
+                              static_cast<const uint4*>(frags), static_cast<uint32_t*>(out), s);
+  };
+  if (s.S == 4) return args(ntt_kernel<4, L>);
+  if (s.S == 2) return args(ntt_kernel<2, L>);
+  return args(ntt_kernel<1, L>);
 }
 
 int mod_pow(long long b, long long e, long long m) {
@@ -390,45 +776,34 @@ int mod_pow(long long b, long long e, long long m) {
   return static_cast<int>(r);
 }
 
-template <int S, int L>
-cudaError_t launch(const void* acc0, const void* bk, const void* a_hat, const void* tables,
-                   void* out, const Shape& s, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ntt_kernel<S, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem);
-  if (err != cudaSuccess) return err;
-  ntt_kernel<S, L><<<(s.B + S - 1) / S, kThreads, s.smem, stream>>>(
-      static_cast<const uint32_t*>(acc0), static_cast<const int8_t*>(bk),
-      static_cast<const int32_t*>(a_hat), static_cast<const int8_t*>(tables),
-      static_cast<uint32_t*>(out), s);
-  return cudaGetLastError();
-}
-
-template <int L>
-cudaError_t launch_s(int S, const void* acc0, const void* bk, const void* a_hat,
-                     const void* tables, void* out, const Shape& s, cudaStream_t stream) {
-  if (S == 4) return launch<4, L>(acc0, bk, a_hat, tables, out, s, stream);
-  if (S == 2) return launch<2, L>(acc0, bk, a_hat, tables, out, s, stream);
-  return launch<1, L>(acc0, bk, a_hat, tables, out, s, stream);
-}
-
 }  // namespace
 
 extern "C" {
 
-// acc0 u32 [B, C, N]; bk_lhs int8 [n, 2, N1, 2*CLN2, RN2]; a_hat int32 [n, B];
-// tables int8 [2 primes][4][N1][N1]: w_fwd^T hi, lo ([bin][i]) and w_inv^T
-// hi, lo ([i][bin]), balanced bytes of the centered tables -> out u32
-// [B, C, N].  Takes N a power of two, N1 a power of two with 4 <= N1 <= 128
-// dividing N (any N2 = N/N1), R*N2 a multiple of 4, C*key_limbs*N2 even,
-// key_limbs 3 or 4, log_base <= 6 and B >= 1, when S=1 sample's shared
-// memory fits the card; returns cudaErrorInvalidValue for anything else.
-// info[0..3] <- samples per CTA, threads, shared bytes, CTAs.
+// acc0 u32 [B, C, N]; bk_lhs int8 [n, 2, N1, 2*CLN2, RN2] (16-byte aligned);
+// a_hat int32 [n, B]; frags: the transforms' mma fragments (the wrapper's
+// kernel_tables: int8 [2 primes][fwd, inv][8 m-tiles][32 lanes][2 k-steps]
+// [4 registers][4 bytes]) -> out u32 [B, C, N].  spc (1, 2 or 4) and split
+// (1, 2, 4 or 8; spc*split <= 16) force the plan, 0 lets the entry point
+// pick: the largest split the samples allow, and the samples per CTA whose
+// waves of clusters (cudaOccupancyMaxActiveClusters) take the least time by
+// waves * (spc + 2).  Takes N1 = 64 dividing N, R*N2 a multiple of 4 and
+// at most 384, C*key_limbs*N2 <= 288, key_limbs 3 or 4, 1 <= log_base <= 6,
+// B >= 1, when one sample's shared memory fits the card; returns
+// cudaErrorInvalidValue for anything else, and an error a launch before it
+// left pending.  info[0..8] <- samples per CTA, threads, shared bytes,
+// CTAs, split, clusters the card holds at once, key stages, contraction
+// m-tiles per stage and whether the outgoing Dh and Ch blocks share their
+// room.
 int blind_rotate_nttf(const void* acc0, const void* bk_lhs, const void* a_hat,
-                      const void* tables, void* out, int n_steps, int B, int C, int N,
+                      const void* frags, void* out, int n_steps, int B, int C, int N,
                       int levels, int log_base, int ignored_bits, int N1, int key_bits,
-                      int key_limbs, int* info, void* stream) {
-  if (N < 4 || (N & (N - 1)) || N1 < 4 || N1 > 128 || (N1 & (N1 - 1)) || N % N1 || C < 1 ||
-      B < 1 || levels < 1 || log_base < 1 || log_base > 6 || (key_limbs != 3 && key_limbs != 4))
+                      int key_limbs, int spc, int split, int* info, void* stream) {
+  auto pow2_upto8 = [](int x) { return x == 1 || x == 2 || x == 4 || x == 8; };
+  if (N1 != kN1 || N % kN1 || (N & (N - 1)) || C < 1 || B < 1 || levels < 1 ||
+      log_base < 1 || log_base > 6 || (key_limbs != 3 && key_limbs != 4) ||
+      reinterpret_cast<uintptr_t>(bk_lhs) % 16 || (spc && spc != 1 && spc != 2 && spc != 4) ||
+      (split && !pow2_upto8(split)))
     return static_cast<int>(cudaErrorInvalidValue);
   Shape s{};
   s.n_steps = n_steps;
@@ -438,41 +813,67 @@ int blind_rotate_nttf(const void* acc0, const void* bk_lhs, const void* a_hat,
   s.levels = levels;
   s.log_base = log_base;
   s.ignored_bits = ignored_bits;
-  s.N1 = N1;
-  s.N2 = N / N1;
-  s.R = C * levels;
-  s.RN2 = s.R * s.N2;
+  s.N2 = N / kN1;
+  s.RN2 = C * levels * s.N2;
+  s.RN2p = (s.RN2 + 15) / 16 * 16;
   s.CLN2 = C * key_limbs * s.N2;
+  s.L = key_limbs;
   s.key_bits = key_bits;
   s.inv_p1 = mod_pow(kP1, kP2 - 2, kP2);
-  if (s.RN2 % 4 || s.CLN2 % kQt) return static_cast<int>(cudaErrorInvalidValue);
+  if (s.RN2 % 4 || s.RN2 > 384 || (s.CLN2 + 7) / 8 > kWarps * kMaxOwned ||
+      (2 * s.CLN2 * s.RN2) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
 
-  int dev = 0, max_smem = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // the search below clears the errors of the candidates the card refuses,
+  // so an earlier launch's error is returned first
+  cudaError_t err = cudaPeekAtLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // samples per CTA: a CTA of S samples takes about (S + 1) units of time
-  // (74, 115 and 189 ms for S = 1, 2, 4 at default_128 on an H100), one CTA
-  // runs per SM, so take the S that fits and minimises waves * (S + 1)
-  int S = 0;
-  long best = 0;
-  for (int cand = 1; cand <= 4; cand *= 2) {
-    if (layout(s, cand) > max_smem) break;
-    const long waves = ((B + cand - 1) / cand + sms - 1) / sms;
-    if (S == 0 || waves * (cand + 1) < best) S = cand, best = waves * (cand + 1);
+  int dev = 0, budget = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Shape best{};
+  long best_cost = -1;
+  int best_active = 0;
+  for (int S = 4; S >= 1; S /= 2) {
+    if (spc && S != spc) continue;
+    for (int sp = kMaxCluster; sp >= 1; sp /= 2) {
+      if ((split && sp != split) || (!split && sp != std::min(kMaxCluster, 16 / S)) ||
+          S * sp > 4 * kMaxNt)
+        continue;
+      s.S = S, s.split = sp;
+      if (!fit_stages(s, budget)) continue;
+      cudaLaunchConfig_t cfg;
+      cudaLaunchAttribute attr;
+      int active = 0;
+      err = key_limbs == 3 ? configure_s<3>(s, cfg, attr, &active)
+                           : configure_s<4>(s, cfg, attr, &active);
+      if (err != cudaSuccess || active < 1) {
+        cudaGetLastError();  // a cluster the card cannot hold is not a fault
+        continue;
+      }
+      const long waves = (cfg.gridDim.x / sp + active - 1) / active;
+      const long cost = waves * (S + 2);
+      if (best_cost < 0 || cost < best_cost) best = s, best_cost = cost, best_active = active;
+    }
   }
-  if (S == 0) return static_cast<int>(cudaErrorInvalidValue);
-  layout(s, S);
-  info[0] = S;
-  info[1] = kThreads;
-  info[2] = s.smem;
-  info[3] = (B + S - 1) / S;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = key_limbs == 3 ? launch_s<3>(S, acc0, bk_lhs, a_hat, tables, out, s, st)
-                       : launch_s<4>(S, acc0, bk_lhs, a_hat, tables, out, s, st);
-  return static_cast<int>(err);
+  if (best_cost < 0) return static_cast<int>(cudaErrorInvalidValue);
+  s = best;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  err = key_limbs == 3 ? configure_s<3>(s, cfg, attr, &active)
+                       : configure_s<4>(s, cfg, attr, &active);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  const int plan[9] = {s.S, kThreads, s.smem, static_cast<int>(cfg.gridDim.x), s.split,
+                       best_active, s.stages, s.mcs, s.share};
+  std::copy(plan, plan + 9, info);
+  err = key_limbs == 3 ? launch_s<3>(s, cfg, acc0, bk_lhs, a_hat, frags, out)
+                       : launch_s<4>(s, cfg, acc0, bk_lhs, a_hat, frags, out);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* tfhe_cuda_error_string(int err) {

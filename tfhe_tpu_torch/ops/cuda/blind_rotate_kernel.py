@@ -183,8 +183,9 @@ def _launch(kernel: CudaKernel, kind: str, params: TfheParams, acc0: torch.Tenso
                          f"bytes of shared memory, over the card's {budget}")
     out = torch.empty_like(acc0)
     info = (ctypes.c_int * 5)()
-    kernel.launch(ptr(acc0), ptr(bk_u32), ptr(a_hat), ptr(out), steps, b, k1, n, dp.levels,
-                  dp.log_base, dp.ignored_bits, *mode, spc, info, stream_of(out))
+    with torch.cuda.device(device):  # the C entry point works on the current device
+        kernel.launch(ptr(acc0), ptr(bk_u32), ptr(a_hat), ptr(out), steps, b, k1, n, dp.levels,
+                      dp.log_base, dp.ignored_bits, *mode, spc, info, stream_of(out))
     plan = dict(samples_per_cta=info[0], threads=info[1], smem_bytes=info[2], ctas=info[3])
     if kind == "cols":
         plan["max_active_clusters"] = info[4]

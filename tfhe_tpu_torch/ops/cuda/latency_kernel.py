@@ -148,8 +148,9 @@ def blind_rotate_latency(params: TfheParams, acc0: torch.Tensor, bk_lat: torch.T
         raise ValueError("bk_lat must be 16-byte aligned")
     out = torch.empty_like(acc0)
     info = (ctypes.c_int * 4)()
-    KERNEL.launch(ptr(acc0), ptr(bk_lat), ptr(a_vhat), ptr(out), steps, b, variants, k1, n,
-                  dp.levels, dp.log_base, dp.ignored_bits, info, stream_of(out))
+    with torch.cuda.device(device):  # the C entry point works on the current device
+        KERNEL.launch(ptr(acc0), ptr(bk_lat), ptr(a_vhat), ptr(out), steps, b, variants, k1, n,
+                      dp.levels, dp.log_base, dp.ignored_bits, info, stream_of(out))
     last_plan.update(cluster=info[0], threads=info[1], smem_bytes=info[2],
                      max_active_clusters=info[3])
     return out
