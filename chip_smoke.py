@@ -11,12 +11,14 @@ failure, so the script exits nonzero and prints no result line.
   0. require CUDA; print the card, its power limit, torch and CUDA versions;
   1. build the kernels, all nvcc processes at once (one per source, eight),
      with the build seconds and ptxas' resource report, and count the IMMA
-     (integer tensor-core) instructions of Kernels A, H, B, E, F, G and D
-     with ``cuobjdump -sass``: there must be some in each, and Kernel D must
-     hold no IDP4A (dp4a) instruction;
+     (integer tensor-core) instructions of Kernels A, H, B, E, F, G, C and D
+     with ``cuobjdump -sass``: there must be some in each, and Kernels C and
+     D must hold no IDP4A (dp4a) instruction;
   2. hold each kernel against its plain PyTorch twin (``torch.equal``) at
      nano, test_insecure and a 16-step slice of the default_128 key (Kernel C
-     in both forms: V=1 and the BMMP V=3; Kernel D also on an all-ones
+     in both forms: V=1 and the BMMP V=3, also on the worst case, every key
+     byte -128 with the largest digits, at large_2048 and large_4096, and
+     under every cluster size forced, LAT_CLUSTERS; Kernel D also on an all-ones
      canonical key, the key side of its CRT range at its bound, on every
      byte 0x80 with the largest digits, at large_2048, and under every plan
      instance (samples per CTA, split) forced, NTTF_PLANS; Kernel B in
@@ -85,7 +87,9 @@ flattened to [B, R*N], against the key's Toeplitz limb form
 cuBLAS's fastest layout for it); its time is their ``library_ms``, held
 equal to the kernels' sums.  Their entries also carry the ``plan`` of the
 B=64 launch, and the whole-scan kernels' entries that of their main-path
-launch, Kernel D's with the IMMA and IDP4A counts of its SASS.  No
+launch, Kernels C's and D's with the IMMA and IDP4A counts of their SASS;
+Kernel C's also carries its one-cluster bound, the card's bound over the
+share of the SMs one sample's cluster holds.  No
 single call computes the whole-scan kernels' functions, so
 theirs is null.  The last line is ``{"ok": true,
 "device": {...}}``.  It imports neither JAX nor ``tfhe_tpu``.
@@ -254,31 +258,54 @@ def phase2(epk, brk, get_params, to_torch_u32, params, sk, dev) -> None:
     torch.cuda.synchronize()
 
 
+#: Kernel C's cluster sizes held against its twin in phase 2 at N=512, those
+#: that fit the H100's shared memory, by variants
+LAT_CLUSTERS = {1: (16, 8, 4, 2, 1), 3: (16, 8, 4)}
+
+
 def phase2_latency(latk, get_params, to_torch_u32, params, sk, dev) -> None:
-    """Kernel C against its twin: random keys at nano and test_insecure, and
-    a 16-step slice of the default_128 latency key, in both forms."""
+    """Kernel C against its twin, in both forms (V=1 and the BMMP V=3):
+    random keys at nano and test_insecure, the worst case (every key byte
+    -128, digits -8 and the +B anomaly 16) at nano, test_insecure and
+    default_128, large_2048 and large_4096 (both forms) at 2 steps, every
+    cluster size forced at test_insecure (LAT_CLUSTERS), and a 16-step slice
+    of the default_128 latency key."""
     rng = np.random.default_rng(4)
-    cases = [(name, v, b, None) for name in ("nano", "test_insecure")
+    cases = [(name, v, b, None, "random", 0) for name in ("nano", "test_insecure")
              for v, bs in ((1, (1, 3, 8)), (3, (1, 3, 4))) for b in bs]
-    cases += [(params.name, 1, 8, sk.bk_lat[:SLICE_STEPS]),
-              (params.name, 3, 4, sk.bk_bmmp_lat[:SLICE_STEPS])]
-    for name, v, b, bk_lat in cases:
+    cases += [(name, v, b, steps, kind, 0) for name, v, b, steps, kind in (
+        ("nano", 1, 3, None, "worst"), ("test_insecure", 1, 8, None, "worst"),
+        ("test_insecure", 3, 4, None, "worst"), (params.name, 1, 1, 2, "worst"),
+        ("large_2048", 1, 2, 2, "random"), ("large_2048", 3, 2, 2, "random"),
+        ("large_4096", 1, 2, 2, "random"), ("large_4096", 3, 1, 2, "random"))]
+    cases += [("test_insecure", v, 2, 2, kind, cs) for v, sizes in LAT_CLUSTERS.items()
+              for cs in sizes for kind in ("random", "worst")]
+    cases += [(params.name, 1, 8, "slice", "random", 0), (params.name, 3, 4, "slice", "random", 0)]
+    for name, v, b, steps, kind, cluster in cases:
         p = get_params(name)
         k1, n = p.glwe_dimension + 1, p.degree
-        if bk_lat is None:
+        if steps == "slice":
+            bk_lat = (sk.bk_lat if v == 1 else sk.bk_bmmp_lat)[:SLICE_STEPS]
+        else:
             width = 4 * latk.n_groups(p, v) * n
             bk_lat = torch.from_numpy(rng.integers(
-                -128, 128, size=(p.lwe_dimension, k1 * 4, width), dtype=np.int8)).to(dev)
+                -128, 128, size=(steps or p.lwe_dimension, k1 * 4, width), dtype=np.int8)).to(dev)
         steps = bk_lat.shape[0]
         acc0 = to_torch_u32(rnd_u32(rng, (b, k1, n)), dev)
         a_vhat = torch.from_numpy(
             rng.integers(0, 2 * n, size=(steps, v, b), dtype=np.int32)).to(dev)
-        got = latk.blind_rotate_latency(p, acc0, bk_lat, a_vhat)
+        if kind == "worst":  # rot - acc = -2*acc = 0xF8F8F800 in step 0: digits -8, +16
+            bk_lat = torch.full_like(bk_lat, -128)
+            acc0 = to_torch_u32(np.full((b, k1, n), 0x83838400, np.uint32), dev)
+            a_vhat[0] = n
+        got = latk.blind_rotate_latency(p, acc0, bk_lat, a_vhat, cluster)
         want = latk.blind_rotate_latency_ref(p, acc0, bk_lat, a_vhat)
-        require(torch.equal(got, want),
-                f"blind_rotate_latency != twin at {name} V={v} B={b} steps={steps}")
-        log(f"  blind_rotate_latency V={v} {name:13s} B={b:<4d} steps={steps:<3d} equal; "
-            f"plan {latk.last_plan}")
+        require(torch.equal(got, want), f"blind_rotate_latency != twin at {name} V={v} B={b} "
+                                        f"steps={steps} ({kind} key, cluster {cluster})")
+        require(cluster in (0, latk.last_plan["cluster"]),
+                f"Kernel C ran clusters of {latk.last_plan['cluster']}, not {cluster}")
+        log(f"  blind_rotate_latency V={v} {kind:6s} {name:13s} B={b:<4d} steps={steps:<3d} "
+            f"equal; plan {latk.last_plan}")
     torch.cuda.synchronize()
 
 
@@ -670,11 +697,13 @@ def main() -> int:
                brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL, epk.BATCH_KERNEL)
     phase1(kernels, (epk.KERNEL, epk.BATCH_KERNEL, brk.KERNEL, brk.PIPE_KERNEL,
                      brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL))
-    d_sass = sass_counts(nttk.KERNEL)
-    log(f"  {nttk.KERNEL.source}: {d_sass['imma']} IMMA, {d_sass['idp4a']} IDP4A instructions "
-        "(sass_compare.sass_lines)")
-    require(d_sass["imma"] > 0 and d_sass["idp4a"] == 0,
-            "Kernel D's products are not all on the tensor cores (IMMA, no IDP4A)")
+    sass = {}
+    for tag, kernel in (("C", latk.KERNEL), ("D", nttk.KERNEL)):
+        sass[tag] = sass_counts(kernel)
+        log(f"  {kernel.source}: {sass[tag]['imma']} IMMA, {sass[tag]['idp4a']} IDP4A "
+            "instructions (sass_compare.sass_lines)")
+        require(sass[tag]["imma"] > 0 and sass[tag]["idp4a"] == 0,
+                f"Kernel {tag}'s products are not all on the tensor cores (IMMA, no IDP4A)")
     t0 = time.perf_counter()
     budget = smem_budget(dev)
     budget_us = (time.perf_counter() - t0) * 1e6
@@ -901,12 +930,12 @@ def main() -> int:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = max_abs_err(got, ref)
-        lat[v, b] = (ms, plain_ms, err)
+        lat[v, b] = (ms, plain_ms, err, dict(latk.last_plan))
         log(f"  blind_rotate_latency V={v} B={b} [{key.shape[0]} steps]: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.2f} ms, max_abs_err {err}; plan {latk.last_plan}; card: {card}")
-    require(all(e == 0 for *_, e in lat.values()),
+    require(all(e == 0 for _, _, e, _ in lat.values()),
             "Kernel C disagrees with its twin at the main path's shapes")
-    lat_ms, lat_plain_ms, _ = lat[1, 1]
+    lat_ms, lat_plain_ms, _, plan_c = lat[1, 1]
 
     log(f"phase 4: block-NTT, nttf NAND at B={MAIN_B} (CUDA events)")
     nttf_ms, clocked = sampled_clocks(lambda: tfhe.gates.nand(sk, ca, cb, impl="nttf"), 3)
@@ -974,9 +1003,13 @@ def main() -> int:
     bk_bound = bound(r * n * k1 * n * 4 * steps * MAIN_B, acc_bytes + nbytes(sk.bk_u32))
     b1 = 2 * nbytes(acc0[:1]) + nbytes(a_hat[:, :1])
     lat_bound = bound(k1 * 4 * sk.bk_lat.shape[-1] * n * steps, b1 + nbytes(sk.bk_lat))
+    # one sample runs on one cluster: the card's bound over the SMs it holds
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lat_cluster_bound = lat_bound[0] * sms / plan_c["cluster"]
+    plan_c.update(sass["C"])
     nd_bound = bound(int8_products_per_sample_step(params) * steps * MAIN_B,
                      acc_bytes + nbytes(sk.bk_ntt_lhs))
-    plan_d.update(d_sass)
+    plan_d.update(sass["D"])
 
     record = {"kernels": [
         {"name": "ep_contract_rbn", "route": "cuda",
@@ -1005,9 +1038,10 @@ def main() -> int:
          "source": "tfhe_tpu_torch/csrc/latency_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/latency_kernel.py:220",
          "launches": launches["blind_rotate_latency"],
-         "max_abs_err": max(e for *_, e in lat.values()),
+         "max_abs_err": max(e for _, _, e, _ in lat.values()),
          "ms": lat_ms, "plain_ms": lat_plain_ms, "bound_ms": lat_bound[0],
-         "bound_by": lat_bound[1], "library_ms": None},
+         "one_cluster_bound_ms": lat_cluster_bound, "bound_by": lat_bound[1],
+         "library_ms": None, "plan": plan_c},
         {"name": "blind_rotate_nttf", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/ntt_kernel.cu",
          "replaces": "tfhe_tpu/ops/pallas/ntt_kernel.py:211",

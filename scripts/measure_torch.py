@@ -2,6 +2,7 @@
 """Measurements of the PyTorch/CUDA port (``tfhe_tpu_torch``) on one CUDA card.
 
     python3 scripts/measure_torch.py     # from the root of the checkout
+    python3 scripts/measure_torch.py C   # Kernel C's part alone
 
 At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
 
@@ -11,8 +12,17 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
     sampled by ``nvidia-smi`` every 100 ms, and from them the clocks per
     int8 ``mma.sync`` m16n8k32 per busy SM sub-partition;
   * Kernel C (``blind_rotate_latency``) alone at B = 1 .. 8 (V=1) and
-    B = 1 .. 4 (V=3), with its launch plan, and the SM clock while it runs
-    at B=1;
+    B = 1 .. 4 (V=3) under the plan it picks and under every cluster size
+    it takes (``CLUSTERS_C``); the SM clock while it runs at B=1, and from it the clocks
+    per m16n8k32 per sub-partition; its mma and key byte counts
+    (``kernel_c_counted``), the SM clocks of each phase of its step
+    (``kernel_c_phase_clocks``) and where its time goes (``CUTS_C``: copies
+    with no contraction, the contraction alone, the mma loop alone, no key
+    loads, no DSMEM reads, no digit phase, no exchange of the digit words or
+    of the partial deltas, the step's frame alone, the key stream alone as
+    it is and with every CTA taking in every key column, and 16 consumer
+    warps)
+    at [V=1, B=1], [V=1, B=8] and [V=3, B=4] (``kernel_c_report``);
   * the NTT key forms (``with_ntt_key``, ``with_ntt_lhs_key``): seconds and
     peak device memory;
   * Kernel D (``blind_rotate_nttf``) alone at B = 8 .. 2048, with its launch
@@ -220,6 +230,118 @@ _D_COUNTERS = (
             "    err = cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));\n"
             "  return static_cast<int>(err);\n"
             "}\n\n"))
+# Kernel C (csrc/latency_kernel.cu): its contraction (the mma loop; the key
+# stage still arrives and is released), its remote reads of acc (each CTA
+# reads its own slice instead), its digit phase, the two exchanges between
+# the CTAs of a cluster (the digit words, the partial deltas) and its key
+# stream (no copies, no waits for them), each cut from a copy of its
+# source; the key stream alone, as it is and with every CTA taking in all
+# of a step's key columns (as a CTA that contracts all of them must); and
+# 16 consumer warps in place of 8, which must give the same bits.
+_C_NO_MMA = ("        for (int qa = q_lo; qa < q_hi;) {", "        for (int qa = q_lo; qa < q_lo;) {")
+_C_NO_REMOTE = ("        const uint32_t* slice = cluster.map_shared_rank(acc_mine, sn >> s.lgnj);",
+                "        const uint32_t* slice = acc_mine;")
+_C_NO_DIGITS = ("      for (int job = tid; job < s.V * items; job += kConsumers) {",
+                "      for (int job = tid; job < 0; job += kConsumers) {")
+_C_NO_DIGIT_EXCHANGE = (
+    ("      if (tid == 0)  // every CTA's block of this CTA's groups\n", "      if (false)\n"),
+    ("      if (tid < s.cs) {\n        const int glo = group_lo(s, tid)",
+     "      if (false) {\n        const int glo = group_lo(s, tid)"),
+    ("      mbar_wait_cluster(ext_ready, step & 1);\n", ""))
+_C_NO_PARTIALS_EXCHANGE = (
+    ("      if (tid == 0) mbar_expect(delta_ready, s.cs * items * 4);  // every CTA's partials\n"
+     "      if (tid < s.cs) {\n", "      if (false) {\n"),
+    ("      mbar_wait_cluster(delta_ready, step & 1);\n", ""))
+_C_NO_KEYS = (("      if (lane == 0) produce(", "      if (false) produce("),
+              ("      mbar_wait(full + slot, (step / s.stages) & 1);\n", ""))
+_C_KEYS_ALONE = (_C_NO_DIGITS, *_C_NO_DIGIT_EXCHANGE, *_C_NO_PARTIALS_EXCHANGE, _C_NO_MMA)
+_C_MMA_ALONE = (_C_NO_DIGITS, *_C_NO_DIGIT_EXCHANGE, *_C_NO_PARTIALS_EXCHANGE, *_C_NO_KEYS)
+CUTS_C = {"no contraction": (_C_NO_MMA,),
+          "contraction only": (_C_NO_DIGITS, *_C_NO_DIGIT_EXCHANGE, *_C_NO_PARTIALS_EXCHANGE),
+          "mma loop alone": _C_MMA_ALONE,
+          "no key loads": _C_NO_KEYS,
+          "no DSMEM reads": (_C_NO_REMOTE,),
+          "no digit phase": (_C_NO_DIGITS,),
+          "no digit exchange": _C_NO_DIGIT_EXCHANGE,
+          "no partials exchange": _C_NO_PARTIALS_EXCHANGE,
+          "step frame alone": (*_C_KEYS_ALONE, *_C_NO_KEYS),
+          "key stream alone": _C_KEYS_ALONE,
+          "key stream alone, every key column": (*_C_KEYS_ALONE, (
+              "  s.kw = 8 * s.cpc;", "  s.kw = 8 * s.cpc * s.cs;"), (
+              " + rank * s.kw * 4;", ";")),
+          "mma loop alone, no window loads": (*_C_MMA_ALONE, (
+              "              v[k] = word(jd - t0);\n              v[k + 1] = word(jd - t0 - 4);\n",
+              "")),
+          "mma loop alone, no A loads": (*_C_MMA_ALONE, (
+              "              load_a(next, q + u + 1 < qb ? q + u + 1 : q + u);\n", ""), (
+              "              for (int r = 0; r < 4; ++r) a[r] = next[r];\n", "")),
+          "mma loop alone, loads with no mma": (*_C_MMA_ALONE, (
+              "                limb_planes::mma_s8(acc[n], a, v[k], v[k + 1]);",
+              "                acc[n][0] ^= v[k] + v[k + 1] + a[n & 3];")),
+          "16 consumer warps": (("constexpr int kWarps = 8;  // consumer warps",
+                                 "constexpr int kWarps = 16;  // consumer warps"),),
+          "16 n-tiles a warp": (
+              ("constexpr int kMaxNtw = 8; ", "constexpr int kMaxNtw = 16;"),
+              ("  s.ntw = tiles / kWarps;", "  s.ntw = 2 * tiles / kWarps;"),
+              ("  if (s.ntw == 8) return configure_t<8>(s, cfg, attr, active);",
+               "  if (s.ntw == 16) return configure_t<16>(s, cfg, attr, active);\n"
+               "  if (s.ntw == 8) return configure_t<8>(s, cfg, attr, active);"),
+              ("  if (s.ntw == 8) return args(latency_kernel<8>);",
+               "  if (s.ntw == 16) return args(latency_kernel<16>);\n"
+               "  if (s.ntw == 8) return args(latency_kernel<8>);")),
+          "4 n-tiles a warp": (("  s.ntw = tiles / kWarps;", "  s.ntw = tiles / kWarps / 2;"),)}
+EXACT_CUTS_C = {"16 consumer warps", "16 n-tiles a warp", "4 n-tiles a warp"}
+#: Kernel C's cluster sizes timed beside the picked one; those a shape does
+#: not fit are refused and skipped
+CLUSTERS_C = (16, 8, 4, 2, 1)
+#: Kernel C with phase timers: thread 0 of CTA 0 sums clock64() over each
+#: phase of a step (PHASES_C, in order) and writes the sums over its first
+#: outputs, which are then wrong
+PHASES_C = ("wait for the slices", "digit phase", "digit exchange", "key wait", "mma loop",
+            "recombination", "partials exchange", "slice update")
+_C_TIMERS = (
+    _after("  const int b = blockIdx.x / s.cs;  // the cluster's sample\n",
+           "  long long clocks[8] = {}, last = clock64();\n"
+           "  auto tick = [&](int phase) {\n"
+           "    if (tid == 0) {\n"
+           "      const long long now = clock64();\n"
+           "      clocks[phase] += now - last;\n"
+           "      last = now;\n"
+           "    }\n"
+           "  };\n"),
+    _after("      cluster_wait();  // every slice holds the previous step's accumulator\n",
+           "      tick(0);\n"),
+    _before("      // this CTA's digit block into every CTA's ext, at the place of its\n",
+            "      tick(1);\n"),
+    _before("      // the contraction of this step's key stage\n", "      tick(2);\n"),
+    _after("      const uint32_t* st = key_w + slot * stage_words;\n", "      tick(3);\n"),
+    _before("        // rows (c, l) = 4c + l of one column sit on lanes 4 apart: recombine\n",
+            "        tick(4);\n"),
+    _before("      // each CTA's partials into its `recv`, at this CTA's place\n",
+            "      tick(5);\n"),
+    _after("      mbar_wait_cluster(delta_ready, step & 1);\n", "      tick(6);\n"),
+    _after("        acc_mine[it] += d;\n      }\n", "      tick(7);\n"),
+    _after("    out[static_cast<size_t>(b) * CN + (c << s.lgN) + rank * nj + jl] = acc_mine[it];\n"
+           "  }\n",
+           "  __syncthreads();\n"
+           "  if (tid == 0 && blockIdx.x == 0)\n"
+           "    for (int k = 0; k < 8; ++k) {\n"
+           "      out[2 * k] = static_cast<uint32_t>(clocks[k]);\n"
+           "      out[2 * k + 1] = static_cast<uint32_t>(clocks[k] >> 32);\n"
+           "    }\n"))
+#: Kernel C with counters, in Kernel D's slots 0 and 2 (read back by the
+#: same tfhe_kernel_counts): the warp-wide m16n8k32 mma.sync it issues and
+#: the key bytes its copies read, summed over the launch
+_C_COUNTERS = (
+    _after("constexpr int kPlanInts = 7;\n", "__device__ unsigned long long g_counts[3];\n"),
+    _before("#pragma unroll\n              for (int n = 0; n < NTW; ++n) {\n"
+            "                const int k = (2 * n - 2 * u) & (2 * NTW - 1);",
+            "              if (lane == 0) atomicAdd(&g_counts[0], 1ull * NTW);\n"),
+    _before("#pragma unroll\n            for (int n = 0; n < NTW; ++n) limb_planes::mma_s8(",
+            "            if (lane == 0) atomicAdd(&g_counts[0], 1ull * NTW);\n"),
+    ("      bulk_copy(dst + r * s.kws * 4,",
+     "      atomicAdd(&g_counts[2], 4ull * s.kw), bulk_copy(dst + r * s.kws * 4,"),
+    _D_COUNTERS[-1])
 SUBPARTITIONS_PER_SM = 4  # each with its own tensor core
 
 
@@ -466,6 +588,147 @@ def kernel_d_cuts(nttk, p, acc0, bk_lhs, a_hat, plans) -> dict:
     return res
 
 
+def kernel_c_inputs(p, sk, a_hat, v):
+    """Kernel C's key and exponents for a gate's mask a_hat: V=1 (fusedl) or
+    V=3 (bmmpl, the BMMP exponents of each pair of steps)."""
+    from tfhe_tpu_torch.models import bootstrap as mboot
+
+    if v == 1:
+        return sk.bk_lat, a_hat[:, None, :].contiguous()
+    return sk.bk_bmmp_lat, torch.stack(mboot._bmmp_exponents(p, a_hat), dim=1).contiguous()
+
+
+def run_with(latk, kernel, fn):
+    """``fn()`` with ``kernel`` standing in for Kernel C's library."""
+    whole = latk.KERNEL
+    try:
+        latk.KERNEL = kernel
+        return fn()
+    finally:
+        latk.KERNEL = whole
+
+
+def kernel_c_counted(latk, p, acc0, key, a_v) -> dict:
+    """Kernel C built with counters (``_C_COUNTERS``) and run once on these
+    inputs under the plan it picks: the m16n8k32 ``mma.sync`` per CTA and
+    step, the key bytes a CTA takes in per step and the key bytes all CTAs
+    read per step.  The counts do not depend on the data, so a few
+    steps of the key serve."""
+    import ctypes
+
+    counted = build_cut(latk.KERNEL, "C", "counters", _C_COUNTERS)
+    read = counted._lib.tfhe_kernel_counts
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    host = (ctypes.c_ulonglong * 3)()
+
+    def run():
+        torch.cuda.synchronize()
+        if read(host, 1):
+            raise RuntimeError("reading Kernel C's counters failed")
+        latk.blind_rotate_latency(p, acc0, key, a_v)
+        torch.cuda.synchronize()
+        if read(host, 1):
+            raise RuntimeError("reading Kernel C's counters failed")
+
+    run_with(latk, counted, run)
+    plan = dict(latk.last_plan)
+    steps = key.shape[0]
+    per = plan["ctas"] * steps
+    return {"plan": plan, "steps": steps, "mma_m16n8k32_per_cta_step": host[0] / per,
+            "key_bytes_per_cta_step": host[2] / per,
+            "l2_key_bytes_per_step": host[2] / steps}
+
+
+def kernel_c_phase_clocks(latk, p, acc0, key, a_v) -> dict:
+    """Kernel C built with phase timers (``_C_TIMERS``: thread 0 of CTA 0 sums
+    clock64() over each phase of a step, PHASES_C): SM clocks per step of
+    each phase.  Its results are wrong; only the clocks are read."""
+    timed = build_cut(latk.KERNEL, "C", "phase timers", _C_TIMERS)
+    out = run_with(latk, timed, lambda: latk.blind_rotate_latency(p, acc0, key, a_v))
+    w = out.reshape(-1)[:2 * len(PHASES_C)].cpu().numpy().astype(np.uint32).astype(np.int64)
+    return {name: float(lo + (hi << 32)) / key.shape[0]
+            for name, lo, hi in zip(PHASES_C, w[0::2], w[1::2])}
+
+
+def kernel_c_report(latk, p, sk, rotation_inputs) -> dict:
+    """Kernel C at default_128: its time at B = 1 .. 8 (V=1) and 1 .. 4 (V=3)
+    under the plan it picks and under each of CLUSTERS_C it takes (each held
+    equal to the picked plan's result); the SM clock while it runs at
+    [V=1, B=1] and from it the clocks per m16n8k32 per sub-partition; its
+    counted mma and key bytes, its phase clocks and its cuts (CUTS_C, timed
+    in turns with the whole kernel: whole, cuts, whole, 2 rounds each; the
+    EXACT_CUTS_C held equal to it) at [V=1, B=1], [V=1, B=8] and [V=3, B=4]."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    res = {}
+    for v, batches in ((1, range(1, 9)), (3, range(1, 5))):
+        for b in batches:
+            acc0, a_hat = rotation_inputs(b)
+            key, a_v = kernel_c_inputs(p, sk, a_hat, v)
+            want = latk.blind_rotate_latency(p, acc0, key, a_v)
+            res[f"kernelC_V{v}_B{b}_plan"] = dict(latk.last_plan)
+            t = event_rounds(lambda: latk.blind_rotate_latency(p, acc0, key, a_v), 5)
+            res[f"kernelC_V{v}_B{b}_ms"] = t
+            log(f"Kernel C V={v} B={b}: ms {t}, plan {latk.last_plan}")
+            for cs in CLUSTERS_C:
+                try:
+                    got = latk.blind_rotate_latency(p, acc0, key, a_v, cs)
+                except RuntimeError:  # the cluster size does not fit this shape
+                    continue
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"Kernel C in clusters of {cs} differs at V={v} B={b}")
+                t = event_rounds(lambda: latk.blind_rotate_latency(p, acc0, key, a_v, cs), 3)
+                res[f"kernelC_V{v}_B{b}_cluster{cs}_ms"] = t
+                log(f"Kernel C V={v} B={b} cluster {cs}: ms {t}, {latk.last_plan}")
+    acc0, a_hat = rotation_inputs(1)
+    key, a_v = kernel_c_inputs(p, sk, a_hat, 1)
+    ms, samples = sampled_clocks(lambda: latk.blind_rotate_latency(p, acc0, key, a_v), 60)
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no sample inside the Kernel C window")
+    clocks = sorted(x[0] for x in samples)
+    counts = kernel_c_counted(latk, p, acc0, key[:4], a_v[:4])
+    # each CTA of the one cluster runs on its own SM for all steps
+    per_sm = counts["mma_m16n8k32_per_cta_step"] * key.shape[0] / (ms / 1e3)
+    res["kernelC_V1_B1_clocked"] = {
+        "ms_per_call": ms, "samples_mhz_w": samples, "sm_mhz_min": clocks[0],
+        "sm_mhz_max": clocks[-1], "counted": counts, "mma_m16n8k32_per_s_per_busy_sm": per_sm,
+        "clocks_per_mma_per_subpartition_at_max_and_min_clock": [
+            c * 1e6 * SUBPARTITIONS_PER_SM / per_sm for c in (clocks[-1], clocks[0])]}
+    log(f"Kernel C V=1 B=1 under nvidia-smi: {ms} ms per call, {len(samples)} samples, SM clock "
+        f"{clocks[0]}-{clocks[-1]} MHz, {counts}, {per_sm:.6e} m16n8k32/s per busy SM")
+    with ThreadPoolExecutor(len(CUTS_C)) as pool:
+        built = dict(zip(CUTS_C, pool.map(
+            lambda name: build_cut(latk.KERNEL, "C", name, CUTS_C[name]), CUTS_C)))
+    res.update({f"C {name} ptxas": [ln.strip() for ln in cut.ptxas_report.splitlines()
+                                    if "registers" in ln or "spill" in ln]
+                for name, cut in built.items()})
+    for v, b in ((1, 1), (1, 8), (3, 4)):
+        acc0, a_hat = rotation_inputs(b)
+        key, a_v = kernel_c_inputs(p, sk, a_hat, v)
+        tag = f"kernelC_V{v}_B{b}"
+        if (v, b) != (1, 1):
+            res[f"{tag}_counted"] = kernel_c_counted(latk, p, acc0, key[:4], a_v[:4])
+        res[f"{tag}_phase_clocks_per_step"] = kernel_c_phase_clocks(latk, p, acc0, key, a_v)
+        log(f"Kernel C V={v} B={b} SM clocks per step by phase: "
+            f"{res[f'{tag}_phase_clocks_per_step']}")
+        want = latk.blind_rotate_latency(p, acc0, key, a_v)
+        for name in ("whole", *built, "whole"):
+            def run():
+                return run_with(latk, built.get(name, latk.KERNEL),
+                                lambda: latk.blind_rotate_latency(p, acc0, key, a_v))
+            try:
+                t = event_rounds(run, 2)
+            except RuntimeError as err:  # the copy's shared memory does not fit this shape
+                res.setdefault(f"{tag}_cuts_ms", {})[name] = str(err)
+                log(f"Kernel C V={v} B={b}, {name}: {err}")
+                continue
+            res.setdefault(f"{tag}_cuts_ms", {}).setdefault(name, []).extend(t)
+            log(f"Kernel C V={v} B={b}, {name}: ms {t}, plan {latk.last_plan}")
+            if name in EXACT_CUTS_C and not torch.equal(run(), want):
+                raise RuntimeError(f"Kernel C with {name!r} differs from the whole kernel")
+    return res
+
+
 def kernel_cuts(brk, p, acc0, bk, a_hat) -> dict:
     """The ms of Kernels B, E, F and G with each of their CUTS (copies built
     into build/tfhe_tpu_torch/kernel_cuts/, all nvcc processes at once), in
@@ -533,9 +796,10 @@ def main() -> int:
     p = tfhe.get_params("default_128")
     ck, sk = tfhe.keygen(p, torch.Generator().manual_seed(0), device=dev, bmmp=True)
     sk = tfhe.with_latency_key(sk)
+    only_c = sys.argv[1:] == ["C"]
     res_keys = {}
-    for name, attach in (("with_ntt_key", tfhe.with_ntt_key),
-                         ("with_ntt_lhs_key", tfhe.with_ntt_lhs_key)):
+    for name, attach in (() if only_c else (("with_ntt_key", tfhe.with_ntt_key),
+                                            ("with_ntt_lhs_key", tfhe.with_ntt_lhs_key))):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -558,6 +822,9 @@ def main() -> int:
         approx = switch_modulus(cb[:b] * 2 + ca[:b], p.log_q, p.log_degree + 1)
         return mboot._init_acc(p, approx, tv)
 
+    if only_c:
+        res.update(kernel_c_report(latk, p, sk, rotation_inputs))
+        return write(res)
     for b in KERNEL_B_BATCHES:
         acc0, a_hat = rotation_inputs(b)
         for balanced in (True, False):
@@ -594,28 +861,7 @@ def main() -> int:
         f"{per_sm_rate:.6e} mma.sync m16n8k32/s per SM, clocks per mma per sub-partition "
         f"{clk_per_mma}")
 
-    # Kernel C: the latency kernel over its batch range, both forms
-    for v, batches in ((1, range(1, 9)), (3, range(1, 5))):
-        for b in batches:
-            acc0, a_hat = rotation_inputs(b)
-            if v == 1:
-                key, a_v = sk.bk_lat, a_hat[:, None, :].contiguous()
-            else:
-                key = sk.bk_bmmp_lat
-                a_v = torch.stack(mboot._bmmp_exponents(p, a_hat), dim=1).contiguous()
-            t = event_rounds(lambda: latk.blind_rotate_latency(p, acc0, key, a_v), 5)
-            res[f"kernelC_V{v}_B{b}_ms"] = t
-            res[f"kernelC_V{v}_B{b}_plan"] = dict(latk.last_plan)
-            log(f"Kernel C V={v} B={b}: ms {t}, plan {latk.last_plan}")
-    acc0, a_hat = rotation_inputs(1)
-    ms, samples = sampled_clocks(
-        lambda: latk.blind_rotate_latency(p, acc0, sk.bk_lat, a_hat[:, None, :].contiguous()),
-        60)
-    clocks = sorted(x[0] for x in samples) or [float("nan")]
-    res["kernelC_V1_B1_clocked"] = {"ms_per_call": ms, "samples_mhz_w": samples,
-                                    "sm_mhz_min": clocks[0], "sm_mhz_max": clocks[-1]}
-    log(f"Kernel C V=1 B=1 under nvidia-smi: {ms} ms per call, {len(samples)} samples, "
-        f"SM clock {clocks[0]}-{clocks[-1]} MHz")
+    res.update(kernel_c_report(latk, p, sk, rotation_inputs))
 
     # Kernel D: the block-NTT whole scan over the same batches
     for b in KERNEL_B_BATCHES:
@@ -692,6 +938,12 @@ def main() -> int:
         log(f"profile {impl} B={b}: gate {gate_ms} ms (untraced), device busy {busy_ms} ms")
         for name, t, count in top:
             log(f"    {t:.3f} ms over {count} launches  {name[:80]}")
+    return write(res)
+
+
+def write(res: dict) -> int:
+    """Add the peak device memory to ``res``; write it to OUT and, as one
+    JSON line, to the standard output."""
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(res, indent=1))

@@ -9,6 +9,9 @@ neither JAX nor tfhe_tpu, so it also runs on a machine without JAX:
 """
 
 import ctypes
+import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -405,8 +408,12 @@ def test_kernels_refuse_unsupported_shapes_on_card(cuda_device):
     assert brk.KERNEL.launches == before
 
 
-def latency_inputs(p, variants, batch, seed, steps=None):
-    """Random acc0, key operand and exponents for Kernel C on the card."""
+def latency_inputs(p, variants, batch, seed, steps=None, kind="random"):
+    """Random acc0, key operand and exponents for Kernel C on the card.
+    kind='worst': every key byte -128 (the largest int8 products) and an
+    accumulator that step 0 rotates by N in every variant (rot - acc =
+    -2*acc = 0xF8F8F800), whose carry-chain digits are -8 and the +B anomaly
+    16 in turn (the largest digits)."""
     k1, n = p.glwe_dimension + 1, p.degree
     steps = steps or p.lwe_dimension
     rng = np.random.default_rng(seed)
@@ -416,6 +423,10 @@ def latency_inputs(p, variants, batch, seed, steps=None):
         rng.integers(-128, 128, size=(steps, k1 * 4, width), dtype=np.int8)).to("cuda")
     a_vhat = torch.from_numpy(
         rng.integers(0, 2 * n, size=(steps, variants, batch), dtype=np.int32)).to("cuda")
+    if kind == "worst":
+        bk_lat = torch.full_like(bk_lat, -128)
+        acc0 = to_torch_u32(np.full((batch, k1, n), 0x83838400, np.uint32), "cuda")
+        a_vhat[0] = n
     return acc0, bk_lat, a_vhat
 
 
@@ -449,6 +460,96 @@ def test_latency_kernel_refuses_unsupported_shapes_on_card(cuda_device):
     with pytest.raises(RuntimeError, match="invalid argument"):
         latk.blind_rotate_latency(p, acc0, bk_lat, a_vhat)
     assert latk.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,variants,batch,steps,kind", [
+    # the main path's shapes (random keys, a few steps)
+    ("default_128", 1, 1, 3, "random"), ("default_128", 1, 8, 3, "random"),
+    ("default_128", 3, 4, 3, "random"),
+    # the largest products and digits: the s32 sums at their bound
+    ("nano", 1, 3, None, "worst"), ("test_insecure", 1, 8, None, "worst"),
+    ("test_insecure", 3, 4, None, "worst"), ("default_128", 1, 1, 2, "worst"),
+    # the large degrees: key stages of part of a digit group
+    ("large_2048", 1, 2, 2, "random"), ("large_2048", 3, 2, 2, "random"),
+    ("large_4096", 1, 1, 2, "random"), ("large_4096", 1, 2, 2, "worst"),
+    ("large_4096", 3, 1, 2, "random"),
+    # N=16: the warps split the k-chunks
+    ("nano_n16", 1, 3, None, "random"), ("nano_n16", 3, 2, None, "worst")])
+def test_latency_kernel_matches_twin_at_every_shape_on_card(cuda_device, name, variants, batch,
+                                                            steps, kind):
+    """Kernel C against its twin, one launch each, under the plan it picks."""
+    p = latency_params(name)
+    acc0, bk_lat, a_vhat = latency_inputs(p, variants, batch, 180 + batch, steps, kind)
+    before = latk.KERNEL.launches
+    got = latk.blind_rotate_latency(p, acc0, bk_lat, a_vhat)
+    torch.cuda.synchronize()
+    assert latk.KERNEL.launches == before + 1
+    assert latk.last_plan["ctas"] == batch * latk.last_plan["cluster"]
+    assert torch.equal(got, latk.blind_rotate_latency_ref(p, acc0, bk_lat, a_vhat))
+
+
+#: Kernel C's cluster sizes at N=512 that fit the H100's shared memory, by
+#: variants
+LATENCY_CLUSTERS = {1: [16, 8, 4, 2, 1], 3: [16, 8, 4]}
+
+
+def latency_params(name):
+    """A parameter set by name; ``nano_n16`` is nano at N=16, where a CTA's
+    n-tiles fill fewer blocks than there are warps and the warps split the
+    k-chunks."""
+    if name == "nano_n16":
+        return dataclasses.replace(get_params("nano"), log_degree=4, name=name)
+    return get_params(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,variants,cluster", [
+    *[("test_insecure", v, cs) for v, sizes in LATENCY_CLUSTERS.items() for cs in sizes],
+    # a cluster of one CTA at N=64, the k-split warps at N=16
+    ("nano", 1, 1), ("nano", 3, 1), ("nano_n16", 1, 2), ("nano_n16", 3, 1)])
+def test_latency_kernel_matches_twin_under_every_plan_on_card(cuda_device, name, variants,
+                                                              cluster):
+    """Kernel C under each cluster size forced, on a random key for 2 steps
+    and on the worst case (every key byte -128, digits -8 and +16)."""
+    p = latency_params(name)
+    for kind in ("random", "worst"):
+        acc0, bk_lat, a_vhat = latency_inputs(p, variants, 2, 190 + cluster, 2, kind)
+        before = latk.KERNEL.launches
+        got = latk.blind_rotate_latency(p, acc0, bk_lat, a_vhat, cluster)
+        torch.cuda.synchronize()
+        assert latk.KERNEL.launches == before + 1
+        assert latk.last_plan["cluster"] == cluster
+        assert torch.equal(got, latk.blind_rotate_latency_ref(p, acc0, bk_lat, a_vhat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,variants,cluster", [
+    ("test_insecure", 3, 2),   # the digit words and one key stage pass the shared memory
+    ("test_insecure", 1, 3)])  # not a cluster size
+def test_latency_kernel_refuses_plans_that_do_not_fit_on_card(cuda_device, name, variants,
+                                                              cluster):
+    """The C entry point returns cudaErrorInvalidValue for a cluster size
+    it cannot run; the wrapper raises and counts no launch."""
+    p = get_params(name)
+    acc0, bk_lat, a_vhat = latency_inputs(p, variants, 1, 63, 2)
+    before = latk.KERNEL.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        latk.blind_rotate_latency(p, acc0, bk_lat, a_vhat, cluster)
+    assert latk.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+def test_latency_kernel_sums_on_tensor_cores_on_card(cuda_device):
+    """Kernel C's products are all int8 mma.sync: its library holds IMMA
+    instructions and no IDP4A (dp4a) one (cuobjdump -sass)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    from sass_compare import sass_lines
+
+    latk.KERNEL.load()
+    sass = sass_lines(latk.KERNEL.path)
+    assert sum("IMMA" in ln for ln in sass) > 0
+    assert not any("IDP4A" in ln for ln in sass)
 
 
 def nttf_inputs(p, batch, seed, device, steps=None, kind="random"):

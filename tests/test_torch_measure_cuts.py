@@ -17,13 +17,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import measure_torch as mt  # noqa: E402
 
 from tfhe_tpu_torch.ops.cuda import blind_rotate_kernel as brk  # noqa: E402
+from tfhe_tpu_torch.ops.cuda import latency_kernel as latk  # noqa: E402
 from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk  # noqa: E402
 
 KERNELS = {"B": brk.KERNEL, "E": brk.PIPE_KERNEL, "F": brk.WIDE_PIPE_KERNEL,
-           "G": brk.COLS_KERNEL, "D": nttk.KERNEL}
+           "G": brk.COLS_KERNEL, "D": nttk.KERNEL, "C": latk.KERNEL}
 CASES = [(tag, name, pairs) for tag, cuts in mt.CUTS.items() for name, pairs in cuts.items()]
 CASES += [("D", name, pairs) for name, pairs in mt.CUTS_D.items()]
 CASES += [("D", "phase timers", mt._D_TIMERS), ("D", "counters", mt._D_COUNTERS)]
+CASES += [("C", name, pairs) for name, pairs in mt.CUTS_C.items()]
+CASES += [("C", "phase timers", mt._C_TIMERS), ("C", "counters", mt._C_COUNTERS)]
 
 
 @pytest.mark.parametrize("tag,name,pairs", CASES, ids=[f"{t}-{n}" for t, n, _ in CASES])

@@ -6,7 +6,9 @@
 The circulant expansion sits on the digit side: per step, the key rides as
 int8 limb rows K[(col, limb), (g, t, lane)] (``bk_latency_operand``, the same
 bytes as the JAX package's operand) and each sample's digit rows are
-contracted negacyclically against it.
+contracted negacyclically against it.  The kernel does it on int8 tensor
+cores, one thread-block cluster per sample, its CTAs splitting the key
+columns (see the source).
 
 ``blind_rotate_latency`` launches ``csrc/latency_kernel.cu`` for CUDA tensors
 and runs its plain twin ``blind_rotate_latency_ref`` for CPU tensors; it
@@ -40,12 +42,16 @@ MAX_LATENCY_BATCH_BMMP = 4
 
 KERNEL = CudaKernel(
     "latency_kernel", "blind_rotate_latency",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int),
-                                                   ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
 )
+#: the keys of ``last_plan``, in the order the C entry point reports them
+PLAN_KEYS = ("cluster", "threads", "smem_bytes", "max_active_clusters", "ctas", "stages",
+             "k_splits")
 #: the launch plan of the last launch: cluster size (CTAs per sample),
-#: threads per CTA, dynamic shared memory bytes, and the clusters of that
-#: size the card can hold at once (``cudaOccupancyMaxActiveClusters``)
+#: threads per CTA, dynamic shared memory bytes, the clusters of that size
+#: the card can hold at once (``cudaOccupancyMaxActiveClusters``), CTAs, key
+#: stages in the ring and the k-splits of a CTA's key columns among its
+#: consumer warps
 last_plan: dict = {}
 
 
@@ -126,11 +132,13 @@ def blind_rotate_latency_ref(params: TfheParams, acc0: torch.Tensor, bk_lat: tor
 
 
 def blind_rotate_latency(params: TfheParams, acc0: torch.Tensor, bk_lat: torch.Tensor,
-                         a_vhat: torch.Tensor) -> torch.Tensor:
+                         a_vhat: torch.Tensor, cluster: int = 0) -> torch.Tensor:
     """acc0 u32[B, k+1, N]; bk_lat from ``bk_latency_operand`` (V=1, B <= 8)
     or ``bk_latency_operand_bmmp`` (V=3, B <= 4); a_vhat int32[steps, V, B]
     (V=1: the mod-switched mask; V=3: rows (a+a', a, a') mod 2N per pair)
-    -> the final accumulator u32[B, k+1, N]."""
+    -> the final accumulator u32[B, k+1, N].  ``cluster`` (16, 8, 4, 2 or 1
+    CTAs per sample, see ``last_plan``) forces the kernel's cluster size, 0
+    lets it pick; the CPU twin ignores it."""
     b, k1, n = acc0.shape
     steps, variants = a_vhat.shape[:2]
     check_batch(b, variants)
@@ -147,10 +155,10 @@ def blind_rotate_latency(params: TfheParams, acc0: torch.Tensor, bk_lat: torch.T
     if bk_lat.data_ptr() % 16:
         raise ValueError("bk_lat must be 16-byte aligned")
     out = torch.empty_like(acc0)
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * len(PLAN_KEYS))()
     with torch.cuda.device(device):  # the C entry point works on the current device
         KERNEL.launch(ptr(acc0), ptr(bk_lat), ptr(a_vhat), ptr(out), steps, b, variants, k1, n,
-                      dp.levels, dp.log_base, dp.ignored_bits, info, stream_of(out))
-    last_plan.update(cluster=info[0], threads=info[1], smem_bytes=info[2],
-                     max_active_clusters=info[3])
+                      dp.levels, dp.log_base, dp.ignored_bits, cluster, info, stream_of(out))
+    last_plan.clear()
+    last_plan.update(zip(PLAN_KEYS, info))
     return out
