@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # from the root of the checkout, one card
 
 It builds the hand-written kernels from ``tfhe_tpu_torch/csrc/`` (into
-``build/tfhe_tpu_torch/``) and then runs five phases.  It prints the whole
+``build/tfhe_tpu_torch/``) and then runs six phases.  It prints the whole
 run's seconds at the end.  Each phase raises on
 failure, so the script exits nonzero and prints no result line.
 
@@ -64,17 +64,36 @@ failure, so the script exits nonzero and prints no result line.
      ('fusedc') alone over the whole key at B = 8, 64, 256, 1024 and 2048,
      in turns, each with its plan, its waves, its SM clock, its twin and
      its bound, then the
-     small-batch gates, the 8-bit add, Kernel C against its twin at B=1,
+     small-batch gates (with the SM clock sampled), the 8-bit add, Kernel C
+     against its twin at B=1,
      B=8 (V=1) and B=4 (V=3), then
      the 'nttf' gate at B=1024 with the SM clock sampled, Kernel D against
      its twin at [B=1024, 722 steps], and the 'ntt' and 'ntts' gates at B=64,
-     then the eight whole-scan variant gates at B=1024, and Kernel B at
+     then the eight whole-scan variant gates at B=1024 (with the SM clock
+     sampled), and Kernel B at
      key_limbs=3 and Kernels E, F and G, each timed with the SM clock
      sampled and held against its twin at [B=1024, 722 steps], then
      Kernel A at [R=18; B=1, 8, 64, 1024] and [3R=54; B=64] and Kernel H at
      B=64, 256 and 1024, each with its plan, its SM clock, its twin, its
      library call (below) and its bound, timed as CUDA graphs of EP_GRAPH
-     calls, and the 'conv' gate at B=64.
+     calls, and the 'conv' gate at B=64;
+  5. the entry points at default_128: the CLI (``tfhe_tpu_torch/cli.py``)
+     in-process with its output captured, in a temporary directory: keygen
+     (it prints the seconds of the keygen and of saving the files), encrypt
+     of two 8-bit strings, NAND through 'fusedp' (Kernel E launched once)
+     and through 'fusedl' (Kernel C once, through the latency key form the
+     loader attaches), the 8-bit add through 'fusedl' (Kernel C 19 times),
+     each result decrypted to its clear answer; the keys loaded from the
+     files must equal the keys keygen built in memory from the same seed
+     (``torch.equal``, field for field), and each gate file the same gate
+     run in-process on the loaded ciphertexts; it times loading and saving
+     ``server.npz``.  Then ``python -m tfhe_tpu_torch.bench --iters 3
+     --trace`` as a subprocess (which finds the kernels built): its JSON line
+     is logged, and it must have run 'fusedp' at B=1024 with 0 gate errors
+     and a noise margin below 0.5, name the card, and leave a trace holding
+     the four ``pbs.*`` scopes; and ``python -m tfhe_tpu_torch.bench_adder
+     --impl fusedl --batch 1 --width 8``, with 0 wrong sums and 0 wrong
+     carries.  The CLI's launches are added to the record's counts.
 
 The line before the last is the kernels' JSON record, each kernel with its
 bound: the larger of its operations (int8 multiply-adds as the TPU kernel
@@ -97,8 +116,11 @@ theirs is null.  The last line is ``{"ok": true,
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 import sys
 import time
@@ -117,6 +139,11 @@ NTT_B = 64  # batch of the plain block-NTT scans 'ntt' and 'ntts'
 CONV_B = 64  # batch of the 'conv' scan gate (Kernel H per step)
 CMUX_B = 1024  # GLWE ciphertexts of the GGSW path's cmux (one Kernel H launch)
 EP_GRAPH = 50  # contraction calls per CUDA graph when timing Kernels A and H
+#: phase 5's two 8-bit operands, MSB first as the CLI's ``encrypt --bits``
+#: takes them: 200 and 100
+CLI_BITS = ("11001000", "01100100")
+#: the pbs scopes a trace of the bench must hold
+PBS_SCOPES = ("pbs.mod_switch", "pbs.blind_rotate", "pbs.sample_extract", "pbs.key_switch")
 #: Kernel B's modes: (impl, balanced digits, key limbs)
 KERNEL_B_MODES = (("fused", False, 4), ("fusedb", True, 4), ("fused3", False, 3),
                   ("fusedb3", True, 3))
@@ -669,6 +696,124 @@ def check_gates(tfhe, noise, to_numpy_u32, ck, outs, want) -> None:
         require(rep.max_abs_over_delta < 0.5, f"noise margin {rep.max_abs_over_delta} >= 0.5")
 
 
+def run_module(module: str, *argv: str) -> dict:
+    """Run ``python -m module argv`` from the checkout's root, log its
+    stderr, and return the JSON object of its last stdout line; raise if it
+    fails."""
+    proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stderr.strip().splitlines():
+        log(f"    | {line}")
+    require(proc.returncode == 0, f"python -m {module} exited {proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase5(kernels, tfhe, ser, cli, sk, ck, params, pipe, lat, card) -> dict:
+    """The entry points at default_128 on the card: the CLI in-process under
+    ``drive`` (keygen, encrypt of two 8-bit strings, NAND through 'fusedp'
+    and through 'fusedl', the 8-bit add through 'fusedl', decrypt), the
+    loaded keys against the ones keygen built in memory from the same seed,
+    each gate file against the same gate run in-process on the loaded
+    ciphertexts; then ``python -m tfhe_tpu_torch.bench --iters 3 --trace``
+    and ``python -m tfhe_tpu_torch.bench_adder --impl fusedl --batch 1
+    --width 8`` as subprocesses.  Returns the CLI's launch counts."""
+    log(f"phase 5: entry points at {params.name} (the CLI in-process, the bench and the adder "
+        "bench as subprocesses)")
+    t_phase = time.perf_counter()
+    launched = {k.symbol: 0 for k in kernels}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        client, server = tmp / "keys" / "client.npz", tmp / "keys" / "server.npz"
+
+        def cli_run(*argv) -> str:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                cli.main([str(a) for a in argv])
+            log(f"  cli {argv[0]}: {out.getvalue().strip()}")
+            return out.getvalue().strip()
+
+        cli_run("keygen", "--params", params.name, "--out", tmp / "keys")
+        log(f"  server.npz: {server.stat().st_size} bytes (np.savez_compressed)")
+        for name, bits, seed in (("a", CLI_BITS[0], 1), ("b", CLI_BITS[1], 2)):
+            cli_run("encrypt", "--client", client, "--bits", bits, "--out", tmp / f"{name}.npz",
+                    "--seed", seed)
+        nand_bits = "".join(str(1 - (int(x) & int(y))) for x, y in zip(*CLI_BITS))
+        sum_bits = format((int(CLI_BITS[0], 2) + int(CLI_BITS[1], 2)) % 256, "08b")
+        runs = [(f"nand_{impl}", impl, ("gate", "--op", "nand"), {kernel.symbol: 1}, nand_bits)
+                for impl, kernel in (("fusedp", pipe), ("fusedl", lat))]
+        runs.append(("add_fusedl", "fusedl", ("add",), {lat.symbol: 19}, sum_bits))
+        for name, impl, command, want_launches, want_bits in runs:
+            _, counts = drive(kernels, lambda: cli_run(
+                *command, "--server", server, "--lhs", tmp / "a.npz", "--rhs", tmp / "b.npz",
+                "--out", tmp / f"{name}.npz", "--impl", impl))
+            launches = {k: v for k, v in counts.items() if v}
+            log(f"  {name}: launches {launches}")
+            require(launches == want_launches,
+                    f"the CLI's {name} launched {launches}, not {want_launches}")
+            for k, v in counts.items():
+                launched[k] += v
+            got = cli_run("decrypt", "--client", client, "--in", tmp / f"{name}.npz")
+            require(got == want_bits, f"the CLI's {name} decrypted to {got}, not {want_bits}")
+
+        # the loaded keys against the ones keygen built in memory from the same
+        # seed (the BMMP draws come after every other draw, so sk's other
+        # fields are the CLI's key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sk_file = ser.load_server_key(server)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ser.save_server_key(tmp / "server_again.npz", sk_file)
+        save_s = time.perf_counter() - t0
+        ck_file = ser.load_client_key(client)
+        for f in ("bk_u32", "bk_lm", "ksk_u32", "ksk_mat"):
+            require(torch.equal(getattr(sk_file, f), getattr(sk, f)),
+                    f"server.npz's {f} differs from the key built in memory")
+        require(sk_file.bk_bmmp_lm is None and sk_file.params == params,
+                "server.npz's key is not the CLI's non-BMMP default_128 key")
+        require(torch.equal(ck_file.lwe_sk, ck.lwe_sk) and torch.equal(ck_file.glwe_sk, ck.glwe_sk),
+                "client.npz's keys differ from the keys built in memory")
+        log(f"  server.npz loaded in {load_s:.3f} s and saved again in {save_s:.3f} s; the "
+            "loaded keys equal the keys keygen built in memory (torch.equal, every field)")
+        (ca, _), (cb, _) = (ser.load_ciphertexts(tmp / f"{n}.npz") for n in ("a", "b"))
+        gates = {}
+        for impl in ("fusedp", "fusedl"):
+            gates[impl], _ = ser.load_ciphertexts(tmp / f"nand_{impl}.npz")
+            # the CLI computes gate(op, rhs, lhs): index = 2*lhs + rhs
+            want = tfhe.gates.nand(tfhe.with_key_form(sk_file, impl), cb, ca, impl=impl)
+            require(torch.equal(gates[impl], want),
+                    f"the CLI's nand_{impl}.npz differs from the in-process gate")
+        require(torch.equal(gates["fusedp"], gates["fusedl"]),
+                "the CLI's fusedp and fusedl gates differ")
+        log("  each CLI gate file equals the in-process gate on the loaded ciphertexts bit for "
+            "bit, and fusedp's equals fusedl's")
+
+        line = run_module("tfhe_tpu_torch.bench", "--iters", "3", "--trace", tmp / "trace")
+        log(f"  bench line: {json.dumps(line)}")
+        b = line["breakdown"]
+        traces = [p.read_text() for p in (tmp / "trace").glob("*.json")]
+        require(b["impl"] == "fusedp" and b["batch"] == 1024,
+                f"the bench ran {b['impl']} at B={b['batch']}, not fusedp at 1024")
+        require(b["gate_errors"] == 0 and b["noise_max_over_delta"] < 0.5,
+                f"the bench's gates: {b['gate_errors']} errors, noise {b['noise_max_over_delta']}")
+        require(b["card"] == card.split(",")[0].strip(), f"the bench names the card {b['card']}")
+        require(len(traces) == 1 and all(f'"{n}"' in traces[0] for n in PBS_SCOPES),
+                "the bench's trace does not hold the four pbs scopes")
+        kernel_events = traces[0].count('"cat": "kernel"')
+        log(f"  bench: fusedp at B=1024, {line['value']} gate bootstraps/s, 0 gate errors; its "
+            f"trace holds {', '.join(PBS_SCOPES)} and {kernel_events} CUDA kernel events")
+
+        adder = run_module("tfhe_tpu_torch.bench_adder", "--impl", "fusedl", "--batch", "1",
+                           "--width", "8", "--out", tmp / "adder.json")
+        log(f"  adder line: {json.dumps(adder)}")
+        require(adder["wrong_sums"] == 0 and adder["wrong_carries"] == 0,
+                f"the adder bench: {adder['wrong_sums']} wrong sums, "
+                f"{adder['wrong_carries']} wrong carries")
+    log(f"  phase 5: {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase0()
@@ -690,7 +835,9 @@ def main() -> int:
     from tfhe_tpu_torch.ops.cuda._build import smem_budget
     from tfhe_tpu_torch.ops.poly import bk_to_matmul_w
     from tfhe_tpu_torch.ops.torus import decode, switch_modulus, to_numpy_u32, to_torch_u32
+    from tfhe_tpu_torch import cli
     from tfhe_tpu_torch.utils import noise
+    from tfhe_tpu_torch.utils import serialization as ser
 
     dev = torch.device("cuda")
     kernels = (epk.KERNEL, brk.KERNEL, latk.KERNEL, nttk.KERNEL, brk.PIPE_KERNEL,
@@ -897,12 +1044,14 @@ def main() -> int:
         f"{', '.join(map(str, KERNEL_B_BATCHES))} (CUDA events)")
     alone = time_alone(brk, sk, params, rng, dev, card, sampled_clocks)
 
-    log("phase 4: small-batch gates (CUDA events; mean of 3 after one warm-up, "
-        "2 for fusedb and bmmp)")
+    log("phase 4: small-batch gates (CUDA events; mean of 30 after one warm-up, "
+        "2 for fusedb and bmmp, so that nvidia-smi samples the clock meanwhile)")
     for impl, b in (("fusedl", 1), ("fusedl", 8), ("bmmpl", 1), ("bmmpl", 4),
                     ("bmmp", BMMP_B), ("fusedb", 1), ("fusedb", 8)):
-        ms = cuda_ms(lambda: nand(impl, b), 2 if impl in ("fusedb", "bmmp") else 3)
-        log(f"  gate {impl:6s} B={b:<3d} {ms:.3f} ms; card: {card}")
+        ms, clocked = sampled_clocks(lambda: nand(impl, b), 2 if impl in ("fusedb", "bmmp") else 30)
+        mhz = sorted(c for c, _ in clocked) or [float("nan")]
+        log(f"  gate {impl:6s} B={b:<3d} {ms:.3f} ms; SM clock {len(clocked)} samples "
+            f"{mhz[0]}-{mhz[-1]} MHz; card: {card}")
     add_s = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -959,11 +1108,12 @@ def main() -> int:
         ms = cuda_ms(lambda: nand(impl, NTT_B), 2)
         log(f"  gate {impl:6s} B={NTT_B:<3d} {ms:.3f} ms; card: {card}")
 
-    log(f"phase 4: whole-scan variants at B={MAIN_B} (CUDA events)")
+    log(f"phase 4: whole-scan variants at B={MAIN_B} (CUDA events; mean of 2 after a warm-up)")
     for impl in WHOLE_SCAN:
-        ms = cuda_ms(lambda: nand(impl, MAIN_B), 1)
+        ms, clocked = sampled_clocks(lambda: nand(impl, MAIN_B), 2)
+        mhz = sorted(c for c, _ in clocked) or [float("nan")]
         log(f"  gate {impl:7s} B={MAIN_B} {ms:.3f} ms, {MAIN_B / (ms / 1e3):.1f} gate "
-            f"bootstraps/s; card: {card}")
+            f"bootstraps/s; SM clock {len(clocked)} samples {mhz[0]}-{mhz[-1]} MHz; card: {card}")
     ws = {}  # record name -> (ms, plain ms, max_abs_err, key limbs)
     for name, impl in (("blind_rotate_fused_k3", "fusedb3"), ("blind_rotate_fused_pipe", "fusedp"),
                        ("blind_rotate_fused_wide_pipe", "fusedwb"),
@@ -997,6 +1147,12 @@ def main() -> int:
     ep_a, ep_h = ep["A", r, AUTO_B], ep["H", r, CONV_B]
     conv_ms = cuda_ms(lambda: nand("conv", CONV_B), 2)
     log(f"  gate conv   B={CONV_B:<3d} {conv_ms:.3f} ms (mean of 2 after a warm-up); card: {card}")
+
+    cli_launches = phase5(kernels, tfhe, ser, cli, sk, ck, params, brk.PIPE_KERNEL, latk.KERNEL,
+                          card)
+    for k, v in cli_launches.items():
+        launches[k] += v
+        ws_launches[k] += v
 
     # bounds at the shapes the timings above ran
     acc_bytes = 2 * nbytes(acc0) + nbytes(a_hat)  # acc in and out, exponents

@@ -65,7 +65,6 @@ import json
 import subprocess
 import sys
 import time
-from datetime import datetime
 from pathlib import Path
 
 import numpy as np
@@ -366,42 +365,12 @@ def event_rounds(fn, rounds: int) -> list[float]:
 
 
 def sampled_clocks(fn, calls: int) -> tuple[float, list[tuple[float, float]]]:
-    """Run ``fn()`` ``calls`` times back to back while ``nvidia-smi`` samples
-    the SM clock (MHz) and power draw (W) every 100 ms.  Return the mean
-    device ms per call and the samples whose timestamps fall inside the
-    window, which opens when the first call is queued and closes when the
-    last one has finished."""
-    fn()
-    torch.cuda.synchronize()
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-i", str(torch.cuda.current_device()),
-         "-lms", "100"],
-        stdout=subprocess.PIPE, text=True)
-    try:
-        time.sleep(1.0)  # let the sampler start before the window opens
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = datetime.now()
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        t1 = datetime.now()
-        time.sleep(0.3)
-    finally:
-        smi.terminate()
-        text, _ = smi.communicate(timeout=30)
-    samples = []
-    for line in text.splitlines():
-        parts = [p.strip() for p in line.split(",")]
-        if len(parts) != 3:
-            continue
-        stamp = datetime.strptime(parts[0], "%Y/%m/%d %H:%M:%S.%f")
-        if t0 <= stamp <= t1:
-            samples.append((float(parts[1]), float(parts[2])))
-    return start.elapsed_time(end) / calls, samples
+    """Mean device ms per call of ``fn()`` over ``calls`` calls back to back,
+    and the (SM MHz, W) samples nvidia-smi took meanwhile: the port's
+    ``tfhe_tpu_torch/utils/profiling.py:sampled_clocks``."""
+    from tfhe_tpu_torch.utils.profiling import sampled_clocks as sample
+
+    return sample(fn, calls)
 
 
 def graph_ms(fn, launches: int, clocks: bool = True) -> tuple[float, list[tuple[float, float]]]:

@@ -35,6 +35,13 @@ key); all three equal 'fused' bit for bit::
 
     sk = tfhe.with_ntt_lhs_key(tfhe.with_ntt_key(sk))   # 1.9 GB each at default_128
     out = tfhe.gates.nand(sk, a, b, impl="nttf")        # or "ntt", "ntts"
+
+Entry points: the client/server CLI ``python -m tfhe_tpu_torch.cli`` on the
+JAX package's ``.npz`` key and ciphertext files (``utils/serialization.py``;
+a server loads ``server.npz``, which holds no secret key, through
+``server_key_from_numpy`` and attaches its impl's key form with
+``with_key_form``), and the benches ``python -m tfhe_tpu_torch.bench`` (one
+JSON line in ``bench.py``'s format) and ``python -m tfhe_tpu_torch.bench_adder``.
 """
 
 from tfhe_tpu_torch.models import boolean as gates
@@ -46,6 +53,8 @@ from tfhe_tpu_torch.models.keys import (
     keygen,
     keys_from_numpy,
     make_server_key,
+    server_key_from_numpy,
+    with_key_form,
     with_latency_key,
     with_ntt_key,
     with_ntt_lhs_key,
@@ -78,6 +87,8 @@ __all__ = [
     "keygen",
     "keys_from_numpy",
     "make_server_key",
+    "server_key_from_numpy",
+    "with_key_form",
     "with_latency_key",
     "with_ntt_key",
     "with_ntt_lhs_key",

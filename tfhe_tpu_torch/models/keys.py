@@ -145,6 +145,16 @@ def make_server_key(params: TfheParams, lwe_sk, glwe_sk, bk_a, bk_e, ksk_a,
     return _server_key_from_canonical(params, bk_u32, ksk_u32, bk_bmmp_lm)
 
 
+def server_key_from_numpy(params: TfheParams, bk_u32, ksk_u32, device="cuda",
+                          bk_bmmp_lm=None) -> ServerKey:
+    """Build the port's server key on ``device`` (the card unless the caller
+    asks for another) from the canonical u32 arrays alone, with the BMMP key
+    ``bk_bmmp_lm`` when given: what a server holds, which has no secret key
+    (the ``.npz`` server file of ``utils/serialization.py``)."""
+    bmmp = None if bk_bmmp_lm is None else u32(bk_bmmp_lm, device)
+    return _server_key_from_canonical(params, u32(bk_u32, device), u32(ksk_u32, device), bmmp)
+
+
 def keys_from_numpy(params: TfheParams, lwe_sk, glwe_sk, bk_u32, ksk_u32,
                     device="cuda", bk_bmmp_lm=None) -> tuple[ClientKey, ServerKey]:
     """Build the port's keys on ``device`` (the card unless the caller asks
@@ -153,9 +163,7 @@ def keys_from_numpy(params: TfheParams, lwe_sk, glwe_sk, bk_u32, ksk_u32,
     JAX package's BMMP key ``bk_bmmp_lm`` when given."""
     ck = ClientKey(lwe_sk=u32(lwe_sk, device), glwe_sk=u32(glwe_sk, device),
                    params=params)
-    bmmp = None if bk_bmmp_lm is None else u32(bk_bmmp_lm, device)
-    sk = _server_key_from_canonical(params, u32(bk_u32, device), u32(ksk_u32, device), bmmp)
-    return ck, sk
+    return ck, server_key_from_numpy(params, bk_u32, ksk_u32, device, bk_bmmp_lm)
 
 
 def with_latency_key(sk: ServerKey) -> ServerKey:
@@ -254,6 +262,22 @@ def with_ntt_lhs_key(sk: ServerKey, drop_rhs: bool = False) -> ServerKey:
         src, fn = sk.bk_u32, lambda c: ntt_key_lhs_form(make_ep_ntt_key(c, plan))
     lhs = _build_in_chunks(src, fn, lhs_key_shape(sk.params, plan, sk.params.lwe_dimension))
     return dataclasses.replace(sk, bk_ntt_lhs=lhs, bk_ntt=None if drop_rhs else sk.bk_ntt)
+
+
+def with_key_form(sk: ServerKey, impl: str) -> ServerKey:
+    """``sk`` with the derived key form ``impl`` reads attached: the latency
+    operands for 'fusedl' and 'bmmpl' (``with_latency_key``), the NTT form for
+    'ntt' (``with_ntt_key``), the lhs NTT form alone for 'nttf'
+    (``with_ntt_lhs_key(drop_rhs=True)``).  Every other impl reads the
+    canonical keys and gets ``sk`` back.  (The JAX package derives these
+    forms inside the call; the port builds them once, at key load.)"""
+    if impl in ("fusedl", "bmmpl"):
+        return with_latency_key(sk)
+    if impl == "ntt":
+        return with_ntt_key(sk)
+    if impl == "nttf":
+        return with_ntt_lhs_key(sk, drop_rhs=True)
+    return sk
 
 
 def keygen(params: TfheParams, generator: torch.Generator | int = 0,
