@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # from the root of the checkout, one card
 
 It builds the hand-written kernels from ``tfhe_tpu_torch/csrc/`` (into
-``build/tfhe_tpu_torch/``) and then runs six phases.  It prints the whole
+``build/tfhe_tpu_torch/``) and then runs seven phases.  It prints the whole
 run's seconds at the end.  Each phase raises on
 failure, so the script exits nonzero and prints no result line.
 
@@ -73,10 +73,11 @@ failure, so the script exits nonzero and prints no result line.
      sampled), and Kernel B at
      key_limbs=3 and Kernels E, F and G, each timed with the SM clock
      sampled and held against its twin at [B=1024, 722 steps], then
-     Kernel A at [R=18; B=1, 8, 64, 1024] and [3R=54; B=64] and Kernel H at
-     B=64, 256 and 1024, each with its plan, its SM clock, its twin, its
-     library call (below) and its bound, timed as CUDA graphs of EP_GRAPH
-     calls, and the 'conv' gate at B=64;
+     Kernel A at [R=18; B=1, 8, 64, 1024], [3R=54; B=64] and [R/2=9; B=64]
+     and Kernel H at [R=18; B=64, 256, 1024] and [R/2=9; B=64], each with
+     its plan, its SM clock, its twin, its library call (below) and its
+     bound, timed as CUDA graphs of EP_GRAPH calls, and the 'conv' gate at
+     B=64;
   5. the entry points at default_128: the CLI (``tfhe_tpu_torch/cli.py``)
      in-process with its output captured, in a temporary directory: keygen
      (it prints the seconds of the keygen and of saving the files), encrypt
@@ -93,7 +94,32 @@ failure, so the script exits nonzero and prints no result line.
      and a noise margin below 0.5, name the card, and leave a trace holding
      the four ``pbs.*`` scopes; and ``python -m tfhe_tpu_torch.bench_adder
      --impl fusedl --batch 1 --width 8``, with 0 wrong sums and 0 wrong
-     carries.  The CLI's launches are added to the record's counts.
+     carries.  The CLI's launches are added to the record's counts;
+  6. the sharded and pipelined gates (``tfhe_tpu_torch/parallel``) at
+     default_128, NAND, B=64 per rank, each output held bit for bit against
+     the one-card 'conv' gate on the same inputs (0 gate errors, noise
+     margin below 0.5), each rank's recorded collectives against
+     ``parallel/traffic.py:expected_collectives`` (sizes) and
+     ``expected_calls`` (one per scan step and one for the key switch, or
+     one hop per pipeline tick and one final all-reduce) at its local
+     batch, each gate timed once with CUDA events and the SM clock sampled
+     (``utils/profiling.py:sampled_clocks``):
+       (a) world 1 over NCCL in this process (``PAR_NCCL``): batch DP on
+           'conv' and on 'fusedp' (the one-device gate on the rank's rows,
+           Kernel E once per gate), TP ('pallas' and 'conv', model axis
+           on), the coefficient split ('coeffs'), the NTT-bin split ('ntt')
+           and the pipeline ('conv' and 'pallas', one stage, 2
+           microbatches); Kernel A must launch 722 times per 'pallas'
+           rotation and never otherwise, Kernel H 722 times per 'conv'
+           rotation;
+       (b) Kernels A and H at the rows of a model shard (R = 9, 6, 3)
+           against their twins, then two ranks on this card over gloo
+           (``PAR_GLOO``: DP, TP 'pallas' and 'conv' at model=2, that is A
+           and H at 9 rows, 'coeffs' and the NTT-bin split), spawned
+           through ``parallel/_testing.py:World``, each rank keeping its
+           own key shard; the pipeline is not among them, because gloo
+           cannot send or receive CUDA tensors.  Phase 6's launches are
+           added to the record's counts.
 
 The line before the last is the kernels' JSON record, each kernel with its
 bound: the larger of its operations (int8 multiply-adds as the TPU kernel
@@ -503,19 +529,22 @@ def time_contractions(epk, sk, params, rng, dev, card, graph_ms, bk_to_matmul_w)
     k1, n = params.k + 1, params.degree
     shapes = [("A", sk.bk_lm[0], b) for b in (1, 8, 64, 1024)] + [("A", sk.bk_bmmp_lm[0], 64)]
     shapes += [("H", sk.bk_u32[0], b) for b in (64, 256, 1024)]
-    w_col = {}  # rows' data_ptr -> W laid column-major
+    # a model=2 shard's rows (phase 6's tensor-parallel gates): R/2 = 9
+    half = (k1 * params.pbs_decomposer.levels) // 2
+    shapes += [("A", sk.bk_lm[0, :half], 64), ("H", sk.bk_u32[0, :half], 64)]
+    w_col = {}  # (rows' data_ptr, R) -> W laid column-major
     res = {}  # (kernel, R, B) -> measurements
     for kind, rows, b in shapes:
         r = rows.shape[0]
-        if rows.data_ptr() not in w_col:
+        if (rows.data_ptr(), r) not in w_col:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             w = bk_to_matmul_w(rows).t().contiguous().t()
             torch.cuda.synchronize()
-            w_col[rows.data_ptr()] = w
+            w_col[rows.data_ptr(), r] = w
             log(f"  library operand W for R={r}: {nbytes(w)} bytes, built and laid column-major "
                 f"in {(time.perf_counter() - t0) * 1e3:.2f} ms")
-        w = w_col[rows.data_ptr()]
+        w = w_col[rows.data_ptr(), r]
         if kind == "A":
             d = torch.from_numpy(rng.integers(-128, 128, size=(r, b, n), dtype=np.int8)).to(dev)
             kernel, fn, twin = epk.KERNEL, epk.ep_contract_rbn, epk.ep_contract_rbn_ref
@@ -812,6 +841,181 @@ def phase5(kernels, tfhe, ser, cli, sk, ck, params, pipe, lat, card) -> dict:
                 f"{adder['wrong_carries']} wrong carries")
     log(f"  phase 5: {time.perf_counter() - t_phase:.1f} s")
     return launched
+
+
+#: phase 6: ciphertexts per rank, and the pipeline's microbatches at one stage
+PAR_B = 64
+PAR_M = 2
+#: phase 6 (a), world 1 over NCCL in this process: mode -> (gate, impl,
+#: use_model_axis, traffic mode); every model axis is of size 1 there
+PAR_NCCL = {
+    "dp_conv": ("sharded", "conv", None, "dp"),
+    "dp_fusedp": ("sharded", "fusedp", None, "dp"),
+    "tp_pallas": ("sharded", "pallas", True, "tp"),
+    "tp_conv": ("sharded", "conv", True, "tp"),
+    "coeffs": ("sharded", "coeffs", True, "coeffs"),
+    "ntt_bins": ("sharded", "ntt", True, "ntt"),
+    "pp_conv": ("pipeline", "conv", None, "pp"),
+    "pp_pallas": ("pipeline", "pallas", None, "pp"),
+}
+#: phase 6 (b), two ranks on the one card over gloo: mode -> (mesh, impl,
+#: use_model_axis, traffic mode).  NCCL refuses two ranks on one card, and
+#: gloo carries all_reduce and all_gather on CUDA tensors but not send/recv:
+#: ``scripts/gloo_cuda_probe.py`` on an H100 (torch 2.11) gave "Bad address"
+#: for both of them, the card's pointer read as host memory.  So the
+#: pipeline's hop runs in (a) only.
+PAR_GLOO = {
+    "dp_conv": ([2, 1], "conv", None, "dp"),
+    "tp_pallas": ([1, 2], "pallas", True, "tp"),
+    "tp_conv": ([1, 2], "conv", True, "tp"),
+    "coeffs": ([1, 2], "coeffs", True, "coeffs"),
+    "ntt_bins": ([1, 2], "ntt", True, "ntt"),
+}
+
+
+#: why a mode of (a) is not in (b)
+PAR_NOT_GLOO = {
+    "dp_fusedp": "batch DP calls no collective, and (b)'s dp_conv runs its path",
+    "pp_conv": "gloo cannot send/recv CUDA tensors (scripts/gloo_cuda_probe.py)",
+    "pp_pallas": "gloo cannot send/recv CUDA tensors (scripts/gloo_cuda_probe.py)",
+}
+
+
+def want_launches(impl: str, calls: int, steps: int) -> dict:
+    """Kernels A's, H's and E's launches for ``calls`` rotations of
+    ``impl``: A or H once per step for 'pallas' or 'conv', E once per
+    rotation for 'fusedp', none for the plain impls."""
+    return {"ep_contract_rbn": steps * calls if impl == "pallas" else 0,
+            "ep_contract": steps * calls if impl == "conv" else 0,
+            "blind_rotate_fused_pipe": calls if impl == "fusedp" else 0}
+
+
+def phase6(kernels, epk, tfhe, noise, to_numpy_u32, ck, sk, params, ca, cb, want, card,
+           dev) -> dict:
+    """The sharded and pipelined gates (``tfhe_tpu_torch/parallel``) at
+    default_128, NAND, B=64 per rank, each held bit for bit against the
+    one-card 'conv' gate on the same inputs: (a) world 1 over NCCL in this
+    process, every mode; (b) two ranks on this card over gloo, spawned,
+    each holding its own key shard, the modes of ``PAR_GLOO``, after
+    Kernels A and H are held against their twins at the rows a model shard
+    gives them.  Returns the launches of Kernels A, H and E in both parts,
+    summed over ranks."""
+    import torch.distributed as dist
+
+    from tfhe_tpu_torch.parallel import (make_mesh, make_pipeline_mesh, make_pipelined_gate,
+                                         make_sharded_gate)
+    from tfhe_tpu_torch.parallel._testing import World
+    from tfhe_tpu_torch.parallel.traffic import expected_calls, expected_collectives
+    from tfhe_tpu_torch.utils.profiling import sampled_clocks
+
+    log(f"phase 6: sharded and pipelined gates (tfhe_tpu_torch/parallel) at {params.name}, "
+        f"NAND, B={PAR_B} per rank, each against the one-card conv gate")
+    for mode in PAR_NCCL:
+        where = "(a) world 1 over NCCL" + (" and (b) 2 ranks over gloo" if mode in PAR_GLOO else
+                                           f", not (b): {PAR_NOT_GLOO[mode]}")
+        log(f"  {mode:9s} runs in {where}")
+    steps = params.n
+    rows = (params.k + 1) * params.pbs_decomposer.levels
+    ref = tfhe.gates.nand(sk, ca[:PAR_M * PAR_B], cb[:PAR_M * PAR_B], impl="conv")
+    queue = [c[:PAR_M * PAR_B].reshape(PAR_M, PAR_B, -1) for c in (ca, cb)]
+    totals = dict.fromkeys(want_launches("conv", 0, 0), 0)
+
+    def check(mode, impl, out, counts, payloads, calls, traffic_mode, pipeline, rank=""):
+        rows_out = out.reshape(-1, out.shape[-1])
+        require(torch.equal(rows_out, ref[:rows_out.shape[0]]),
+                f"phase 6 {mode}{rank} differs from the one-card conv gate")
+        check_gates(tfhe, noise, to_numpy_u32, ck, {f"{mode}{rank}": rows_out}, want)
+        gates = PAR_M if pipeline else 1
+        got = {k: counts[k] for k in totals}
+        require(got == want_launches(impl, gates, steps),
+                f"phase 6 {mode}{rank}: Kernels A/H/E launched {got}, want "
+                f"{want_launches(impl, gates, steps)}")
+        m = PAR_M if pipeline else 0
+        model = expected_collectives(params, traffic_mode, PAR_B, m)
+        require(payloads == model, f"phase 6 {mode}{rank}: recorded collectives {payloads} != "
+                                   f"the traffic model {model}")
+        model_calls = expected_calls(params, traffic_mode, PAR_B, m)  # one stage
+        require(calls == model_calls, f"phase 6 {mode}{rank}: recorded calls {calls} != "
+                                      f"the traffic model {model_calls}")
+        for k in totals:
+            totals[k] += got[k]
+
+    log("  (a) world 1 over NCCL, in this process")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    mesh, pmesh = make_mesh(1, 1, device=dev), make_pipeline_mesh(1, 1, device=dev)
+    dist.barrier()  # NCCL makes its communicator at the first collective
+    log(f"  NCCL init (the process group, both meshes, a first barrier): "
+        f"{time.perf_counter() - t0:.3f} s")
+    for mode, (kind, impl, use_model_axis, traffic_mode) in PAR_NCCL.items():
+        pipeline = kind == "pipeline"
+        if pipeline:
+            gate = make_pipelined_gate(pmesh, params, "nand", impl=impl)
+            args = queue
+        else:
+            gate = make_sharded_gate(mesh, params, "nand", impl=impl,
+                                     use_model_axis=use_model_axis)
+            args = (ca[:PAR_B], cb[:PAR_B])
+        out, counts = drive(kernels, lambda: gate(*args, sk))
+        check(mode, impl, out, counts, gate.recorder.payloads(), gate.recorder.calls(),
+              traffic_mode, pipeline)
+        ms, clocked = sampled_clocks(lambda: gate(*args, sk), 1, warmup=False)
+        mhz = sorted(m for m, _ in clocked)
+        log(f"  (a) {mode:9s} world 1: {ms:.3f} ms per gate ({PAR_M if pipeline else 1} x "
+            f"B={PAR_B}); SM clock {len(mhz)} samples {mhz[:1] + mhz[-1:]} MHz; equal to conv, "
+            f"launches {counts}, collectives {gate.recorder.calls()}; card: {card}")
+    dist.destroy_process_group()
+
+    log("  Kernels A and H at the rows a model shard gives them (R = 18/model), B=64, "
+        "against their twins")
+    rng = np.random.default_rng(61)
+    for model in (2, 3, 6):
+        r = rows // model
+        for fn, twin, symbol, key, layout in (
+                (epk.ep_contract_rbn, epk.ep_contract_rbn_ref, "ep_contract_rbn", sk.bk_lm, "rbn"),
+                (epk.ep_contract, epk.ep_contract_ref, "ep_contract", sk.bk_u32, "batch")):
+            shape = (r, PAR_B, params.degree) if layout == "rbn" else (PAR_B, r, params.degree)
+            for lo, hi in ((-8, 17), (-128, 128)):
+                d = torch.from_numpy(rng.integers(lo, hi, size=shape, dtype=np.int8)).to(dev)
+                g = key[0, r * (model - 1):].contiguous()  # the last shard's rows
+                err = max_abs_err(fn(d, g), twin(d, g))
+                require(err == 0, f"{symbol} differs from its twin at R={r}")
+            plan = epk.last_plan[symbol]
+            log(f"  {symbol} R={r} (model={model}): equal to the twin on gate-range and "
+                f"full-range digits; split {plan['split']}, rows per split "
+                f"{plan['rows_per_split']}, {plan['ctas']} CTAs")
+
+    log("  (b) two ranks on this card over gloo, spawned; each rank builds the key from "
+        "seed 0 and keeps its own shard")
+    inputs = {"ct0": to_numpy_u32(ca[:PAR_B]), "ct1": to_numpy_u32(cb[:PAR_B]),
+              "ct0_dp_conv": to_numpy_u32(ca[:2 * PAR_B]),
+              "ct1_dp_conv": to_numpy_u32(cb[:2 * PAR_B])}
+    cases = [dict(kind="sharded", name=mode, shape=shape, impl=impl,
+                  use_model_axis=use_model_axis, time=True)
+             for mode, (shape, impl, use_model_axis, _) in PAR_GLOO.items()]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = World(dict(world=2, backend="gloo", device="cuda:0", params=params.name,
+                         key_seed=0, cases=cases), tmp, inputs).wait(900)
+    log(f"  (b) world of 2 ran in {time.perf_counter() - t0:.1f} s; gloo init "
+        f"{[round(r['init_s'], 3) for r in res['ranks']]} s per rank")
+    for mode, (shape, impl, _, traffic_mode) in PAR_GLOO.items():
+        out = torch.from_numpy(res["outputs"][mode].view(np.int32)).to(dev)
+        for i, rank in enumerate(res["ranks"]):
+            payloads = {k: set(v) for k, v in rank[mode]["payloads"].items()}
+            calls = {k: {int(b): c for b, c in v.items()} for k, v in rank[mode]["calls"].items()}
+            require(rank[mode]["batch_local"] == PAR_B,
+                    f"phase 6 {mode} rank {i} held {rank[mode]['batch_local']} ciphertexts")
+            check(mode, impl, out, rank[mode]["launches"], payloads, calls, traffic_mode, False,
+                  f" rank {i}")
+        mhz = sorted(res["ranks"][0][mode]["sm_clock_samples"])
+        log(f"  (b) {mode:9s} world 2 mesh {shape}: "
+            f"{max(r[mode]['ms'] for r in res['ranks']):.3f} ms per gate (the slower rank; "
+            f"ranks {[round(r[mode]['ms'], 3) for r in res['ranks']]}); SM clock {len(mhz)} "
+            f"samples {[m for m, _ in mhz[:1] + mhz[-1:]]} MHz; equal to conv; launches per "
+            f"rank {[r[mode]['launches'] for r in res['ranks']]}; collectives "
+            f"{res['ranks'][0][mode]['calls']}; card: {card}")
+    return totals
 
 
 def main() -> int:
@@ -1153,6 +1357,12 @@ def main() -> int:
     for k, v in cli_launches.items():
         launches[k] += v
         ws_launches[k] += v
+    t_phase = time.perf_counter()
+    for k, v in phase6(kernels, epk, tfhe, noise, to_numpy_u32, ck, sk, params, ca, cb, want,
+                       card, torch.device("cuda", torch.cuda.current_device())).items():
+        launches[k] += v
+        ws_launches[k] += v
+    log(f"  phase 6: {time.perf_counter() - t_phase:.1f} s")
 
     # bounds at the shapes the timings above ran
     acc_bytes = 2 * nbytes(acc0) + nbytes(a_hat)  # acc in and out, exponents

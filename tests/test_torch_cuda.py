@@ -227,6 +227,78 @@ def test_ep_kernels_launch_on_a_second_card(cuda_device, layout):
     assert torch.equal(got.to(want.device), want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rbn", "batch"], ids=["A", "H"])
+@pytest.mark.parametrize("model", [2, 3, 6])
+def test_ep_kernels_match_twins_at_a_model_shard_of_the_rows_on_card(cuda_device, layout,
+                                                                     model):
+    """The row counts a model-sharded gate gives Kernels A and H at
+    default_128: R = 18 / model = 9, 6, 3 rows, B=64, on full-range digits
+    (whatever split and rows per split ``ep_plan`` picks for them)."""
+    fn, twin, kernel = EP_KERNELS[layout]
+    d, g = ep_edge_inputs("default_128", 64, 180 + model, layout)
+    r = g.shape[0] // model
+    d = (d[:r] if layout == "rbn" else d[:, :r]).contiguous()
+    g = g[:r].contiguous()
+    before = kernel.launches
+    got = fn(d, g)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert epk.last_plan[kernel.symbol]["split"] * epk.last_plan[kernel.symbol][
+        "rows_per_split"] >= r
+    assert torch.equal(got, twin(d, g))
+
+
+@pytest.mark.cuda
+def test_every_parallel_mode_at_world_2_over_nccl_on_two_cards(cuda_device, tmp_path):
+    """Every sharded and pipelined mode on two NCCL ranks, one card each, at
+    test_insecure: each output equals the one-device 'conv' gate and each
+    rank's recorded collectives (their sizes and calls) equal the traffic
+    model."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import tfhe_tpu_torch as tfhe
+    from tfhe_tpu_torch.ops.torus import to_numpy_u32
+    from tfhe_tpu_torch.parallel._testing import World
+    from tfhe_tpu_torch.parallel.traffic import expected_calls, expected_collectives
+
+    p = get_params("test_insecure")
+    ck, sk = tfhe.keygen(p, 5, device="cpu")
+    rng = np.random.default_rng(181)
+    bits = rng.integers(0, 2, size=(2, 2, 4))
+    q0 = np.stack([to_numpy_u32(tfhe.encrypt(ck, bits[0, i], 60 + i)) for i in range(2)])
+    q1 = np.stack([to_numpy_u32(tfhe.encrypt(ck, bits[1, i], 70 + i)) for i in range(2)])
+    modes = {  # name -> (kind, mesh, impl, traffic mode)
+        "dp": ("sharded", [2, 1], "conv", "dp"), "dp_fusedp": ("sharded", [2, 1], "fusedp", "dp"),
+        "tp_pallas": ("sharded", [1, 2], "pallas", "tp"),
+        "tp_conv": ("sharded", [1, 2], "conv", "tp"),
+        "coeffs": ("sharded", [1, 2], "coeffs", "coeffs"),
+        "ntt": ("sharded", [1, 2], "ntt", "ntt"), "host": ("sharded", [1, 1, 2], "conv", "tp"),
+        "pp_conv": ("pipeline", [1, 2], "conv", "pp"),
+        "pp_pallas": ("pipeline", [1, 2], "pallas", "pp")}
+    inputs = dict(lwe_sk=to_numpy_u32(ck.lwe_sk), glwe_sk=to_numpy_u32(ck.glwe_sk),
+                  bk_u32=to_numpy_u32(sk.bk_u32), ksk_u32=to_numpy_u32(sk.ksk_u32),
+                  ct0=q0[0], ct1=q1[0])
+    for name in ("pp_conv", "pp_pallas"):
+        inputs[f"q0_{name}"], inputs[f"q1_{name}"] = q0, q1
+    cases = [dict(kind=kind, name=name, shape=shape, impl=impl)
+             for name, (kind, shape, impl, _) in modes.items()]
+    res = World(dict(world=2, backend="nccl", device="cuda:rank", params="test_insecure",
+                     cases=cases), tmp_path, inputs).wait(600)
+    want = to_numpy_u32(tfhe.gates.nand(sk, q0.reshape(8, -1), q1.reshape(8, -1),
+                                        impl="conv")).reshape(q0.shape)
+    for name, (kind, shape, _, mode) in modes.items():
+        pipeline = kind == "pipeline"
+        assert np.array_equal(res["outputs"][name], want if pipeline else want[0]), name
+        local = 4 // int(np.prod(shape[:-1]))
+        model = expected_collectives(p, mode, local, 2 if pipeline else 0)
+        calls = expected_calls(p, mode, local, 2 if pipeline else 0, shape[-1] if pipeline else 1)
+        for rank in res["ranks"]:
+            assert {k: set(v) for k, v in rank[name]["payloads"].items()} == model, name
+            assert {k: {int(b): c for b, c in v.items()}
+                    for k, v in rank[name]["calls"].items()} == calls, name
+
+
 def second_card_cases():
     """wrapper name -> (kernel, a function of the device giving the call)."""
     p = get_params("test_insecure")

@@ -42,6 +42,11 @@ a server loads ``server.npz``, which holds no secret key, through
 ``server_key_from_numpy`` and attaches its impl's key form with
 ``with_key_form``), and the benches ``python -m tfhe_tpu_torch.bench`` (one
 JSON line in ``bench.py``'s format) and ``python -m tfhe_tpu_torch.bench_adder``.
+
+Multi-card: ``tfhe_tpu_torch.parallel`` (device meshes, the batch-, row-,
+coefficient- and NTT-bin-sharded gates and the pipelined gate on
+``torch.distributed``, one process per rank) and its bench ``python -m
+tfhe_tpu_torch.bench_scaling``.
 """
 
 from tfhe_tpu_torch.models import boolean as gates

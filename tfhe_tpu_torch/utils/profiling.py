@@ -139,17 +139,23 @@ def clock_samples():
             samples.append((float(parts[1]), float(parts[2])))
 
 
-def sampled_clocks(fn, calls: int) -> tuple[float, list[tuple[float, float]]]:
-    """Run ``fn()`` ``calls`` times back to back while ``nvidia-smi`` samples
-    the SM clock (MHz) and power draw (W) every 100 ms.  Return the mean
-    device ms per call and the samples whose timestamps fall inside the
-    window, which opens when the first call is queued and closes when the
-    last one has finished."""
-    fn()
-    torch.cuda.synchronize()
+def sampled_clocks(fn, calls: int, warmup: bool = True,
+                   before=None) -> tuple[float, list[tuple[float, float]]]:
+    """Run ``fn()`` ``calls`` times back to back between CUDA events while
+    ``nvidia-smi`` samples the SM clock (MHz) and power draw (W) every 100
+    ms: after one warm-up call unless ``warmup`` is false, and after
+    ``before()`` (a barrier of the ranks, say) once the sampler runs.  Return
+    the mean device ms per call and the samples whose timestamps fall inside
+    the window, which opens before ``before()`` and closes when the last call
+    has finished."""
+    if warmup:
+        fn()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with clock_samples() as samples:
+        if before is not None:
+            before()
         start.record()
         for _ in range(calls):
             fn()
