@@ -91,15 +91,12 @@ PROFILED = (("fusedb", 1024), ("fusedb3", 1024), ("nttf", 1024), ("auto", 64), (
 #: each text found once in those sources.  A cut kernel's results are wrong
 #: and only its time is read, but for EXACT_CUTS, which must equal the
 #: whole kernel's.
-_NO_BUILD = ("if (j0 == 0 && graw_next != nullptr)", "if (false)")  # mma_row.cuh
+_NO_BUILD = ("if (j0 == 0 && next.graw != nullptr)", "if (false)")  # mma_row.cuh
 _NO_BARRIER = ("        cp_async_commit_wait();\n        __syncthreads();\n",
-               "        cp_async_commit_wait();\n")  # B's and F's row barrier
-_NO_BARRIER_G = ("      cp_async_commit_wait();\n      __syncthreads();\n",
-                 "      cp_async_commit_wait();\n")
+               "        cp_async_commit_wait();\n")  # B's, F's and G's unit barrier
 _NO_DIGITS = ("      whole_scan::rotate_decompose(",
               "      if (idx < 0) whole_scan::rotate_decompose(")
-_NO_PIPELINED_DIGITS = ("planes + ((q + 1) & 1) * ps, next_digits);",
-                        "planes + ((q + 1) & 1) * ps);")  # F's in-row builds
+_NO_PIPELINED_DIGITS = ("units),\n                      next_digits);", "units));")  # F's in-unit builds
 _NO_GATHER = ("      reinterpret_cast<uint4*>(dig + pp * blk)[v] =",
               "      if (idx < 0) reinterpret_cast<uint4*>(dig + pp * blk)[v] =")
 # Kernel E: its producers' plane build and digit jobs, its consumers' mmas,
@@ -107,11 +104,11 @@ _NO_GATHER = ("      reinterpret_cast<uint4*>(dig + pp * blk)[v] =",
 # (2: no setmaxnreg, 320 threads; 8: two warpgroups, 512 threads)
 _E_NO_BUILD = ("build_kept_planes<L>(graw + (q & 1) * N",
                "if (false) build_kept_planes<L>(graw + (q & 1) * N")
-_E_NO_DIGITS = ("digits(st, p, (q - lo) * chunk", "if (false) digits(st, p, (q - lo) * chunk")
+_E_NO_DIGITS = ("digits(st, p, (u - lo) * chunk", "if (false) digits(st, p, (u - lo) * chunk")
 _E_NO_MMA = ("mma_row<L, T>(sums, planes + b * ps",
              "if (false) mma_row<L, T>(sums, planes + b * ps")
 _E_NO_WAIT = ("mbar_wait(full + b, ", "if (false) mbar_wait(full + b, ")
-_E_NO_PRODUCERS = ("for (int q = 0; q < rows; ++q) {", "for (int q = 0; q < 0; ++q) {")
+_E_NO_PRODUCERS = ("for (int u = 0; u < units; ++u) {", "for (int u = 0; u < 0; ++u) {")
 _E_PRODUCERS = {n: ("constexpr int kProducerWarps = 4;", f"constexpr int kProducerWarps = {n};")
                 for n in (2, 8)}
 CUTS = {
@@ -126,7 +123,7 @@ CUTS = {
     "G": {"no plane build": (_NO_BUILD,),
           "no digit phase": (_NO_DIGITS,),
           "no gather": (_NO_GATHER,),
-          "mma loop alone": (_NO_BUILD, _NO_BARRIER_G, _NO_DIGITS, _NO_GATHER)},
+          "mma loop alone": (_NO_BUILD, _NO_BARRIER, _NO_DIGITS, _NO_GATHER)},
     "E": {"no plane build": (_E_NO_BUILD,),
           "no digit work": (_E_NO_DIGITS,),
           "no producer work": (_E_NO_BUILD, _E_NO_DIGITS),

@@ -9,8 +9,13 @@ parent commit) with the port's nvcc flags, all at once, into
 ``build/tfhe_tpu_torch/sass_compare/``, and prints for each: the SASS
 instruction count of both (``cuobjdump -sass``, addresses and encodings
 stripped), their IMMA counts, the registers ptxas reports, and whether the
-instruction streams are identical.  Exits 1 if any pair differs.  Needs
-the CUDA toolkit (the card machine), not a card.
+instruction streams are identical, then the same for each kernel function
+of OTHER's library beside its counterpart here (names compared without
+the per-file hash of the anonymous namespace and without a last template
+argument ``false`` this checkout added, as the whole-scan kernels' N <=
+512 instances gained ``kBlocked``), and the functions only this checkout
+has.  Exits 1 if any pair differs.  Needs the CUDA toolkit (the card
+machine), not a card.
 """
 
 from __future__ import annotations
@@ -34,6 +39,26 @@ def sass_lines(lib: Path) -> list[str]:
     addr = re.compile(r"/\*[0-9a-f]{4,}\*/")  # 5 digits past 64 KiB of code
     return [re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", ln).strip()
             for ln in sass.splitlines() if addr.search(ln)]
+
+
+def functions(lib: Path) -> dict[str, list[str]]:
+    """Each kernel function's SASS instructions in a built library, by its
+    mangled name less the anonymous namespace's per-file hash and a last
+    template argument ``false`` (``Lb0E``)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    addr = re.compile(r"/\*[0-9a-f]{4,}\*/")
+    res, name = {}, None
+    for ln in sass.splitlines():
+        head = re.search(r"Function : (\S+)", ln)
+        if head:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", head.group(1)).replace("ELb0EE", "EE")
+            res[name] = []
+        elif name is not None and addr.search(ln):
+            res[name].append(re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", ln).strip())
+    return res
 
 
 def sass_of(src: Path, lib: Path) -> tuple[list[str], list[str]]:
@@ -70,6 +95,15 @@ def main() -> int:
               f"{sum('IMMA' in ln for ln in mine)} / {sum('IMMA' in ln for ln in theirs)}, "
               f"registers {regs_mine} / {regs_theirs}: "
               f"{'identical SASS' if same else 'SASS DIFFERS'}", flush=True)
+        mine_f, theirs_f = (functions(out / f"{tag}_{name}.so") for tag in ("this", "other"))
+        for fn, body in sorted(theirs_f.items()):
+            here = mine_f.get(fn)
+            print(f"  {fn}: {len(here) if here is not None else 'none'} / {len(body)} "
+                  f"instructions: {'identical' if here == body else 'differs'}", flush=True)
+        for fn in sorted(set(mine_f) - set(theirs_f)):
+            print(f"  {fn}: {len(mine_f[fn])} instructions, "
+                  f"{sum('IMMA' in ln for ln in mine_f[fn])} IMMA, only in this checkout",
+                  flush=True)
     return 1 if differ else 0
 
 

@@ -459,16 +459,22 @@ def test_kernels_refuse_unsupported_shapes_on_card(cuda_device):
         with pytest.raises(RuntimeError, match="invalid argument"):
             launch_with_plan(epk.KERNEL, d, g, out, 2, 1, 2, n, (16, 2, 1, 2, 1))
     assert epk.KERNEL.launches == before
-    # Kernel B takes N a power of two from 64 to 512 (at most 8 warps of 4
-    # 16-output tiles), any C: not N=1024 (k+1=3), large_2048's N=2048
-    # (k+1=2), N=32 or N=96
+    # Kernel B takes N a power of two from 64 to 4096 (8 warps of 4
+    # 16-output tiles, in blocks of 512 above 512), any C: not N=32, N=96 or
+    # N=8192, which its wrapper refuses and its C entry point too
     before = brk.KERNEL.launches
-    for k1, n in ((3, 1024), (2, 2048), (2, 32), (2, 96)):
+    for k1, n in ((2, 32), (2, 96), (2, 8192)):
         acc0 = to_torch_u32(rnd_u32(rng, (1, k1, n)), cuda_device)
         bk = to_torch_u32(rnd_u32(rng, (1, k1 * p.pbs_decomposer.levels, k1, n)), cuda_device)
         a_hat = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
-        with pytest.raises(RuntimeError, match="invalid argument"):
+        with pytest.raises(ValueError, match="from 64 to 4096"):
             brk.blind_rotate_fused(p, acc0, bk, a_hat)
+        dp, info = p.pbs_decomposer, (ctypes.c_int * 5)()
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            brk.KERNEL.launch(_build.ptr(acc0), _build.ptr(bk), _build.ptr(a_hat),
+                              _build.ptr(torch.empty_like(acc0)), 1, 1, k1, n, dp.levels,
+                              dp.log_base, dp.ignored_bits, 0, 0, 4, 1, info,
+                              _build.stream_of(acc0))
     # a key that is not 16-byte aligned (Kernel B copies it in 16-byte pieces)
     k1, n = 2, 64
     shape = (1, k1 * p.pbs_decomposer.levels, k1, n)
@@ -767,26 +773,28 @@ def test_whole_scan_kernels_refuse_shapes_over_the_budget_on_card(cuda_device, m
                                                                   impl):
     """A shape whose one sample passes the card's shared-memory budget raises
     ValueError before any launch, and the twin does not stand in: at
-    test_insecure against a budget one byte short of one sample, and for
-    Kernels E and F also at large_2048, which they refuse by its degree (N
-    from 64 to 512) before they size anything."""
+    test_insecure and at large_2048 (the blocked tiling) against a budget
+    one byte short of one sample.  Under the card's own budget large_2048
+    then runs, one launch, and equals the twin."""
     fn, _, options, kernel = WHOLE_SCAN[impl]
     for name in ("blind_rotate_fused_ref", "blind_rotate_fused_pipe_ref",
                  "blind_rotate_fused_wide_pipe_ref", "blind_rotate_fused_cols_ref"):
         monkeypatch.setattr(brk, name, lambda *a, **k: pytest.fail("the twin ran"))
     kind = kind_of(kernel)
-    p = get_params("test_insecure")
-    acc0, bk, a_hat = whole_scan_inputs(p, 2, 63, cuda_device, steps=1)
     before = kernel.launches
-    with monkeypatch.context() as m:
-        m.setattr(brk, "smem_budget", lambda device: brk.smem_bytes(kind, p, 1) - 1)
-        with pytest.raises(ValueError, match="shared memory"):
-            fn(p, acc0, bk, a_hat, **options)
-    if impl in ("fusedp", "fusedw"):
-        big = get_params("large_2048")
-        with pytest.raises(ValueError, match="from 64 to 512"):
-            fn(big, *whole_scan_inputs(big, 1, 64, cuda_device, steps=1), **options)
+    for name in ("test_insecure", "large_2048"):
+        p = get_params(name)
+        acc0, bk, a_hat = whole_scan_inputs(p, 2, 63, cuda_device, steps=1)
+        with monkeypatch.context() as m:
+            m.setattr(brk, "smem_budget", lambda device: brk.smem_bytes(kind, p, 1) - 1)
+            with pytest.raises(ValueError, match="shared memory"):
+                fn(p, acc0, bk, a_hat, **options)
     assert kernel.launches == before
+    monkeypatch.undo()
+    got = fn(p, acc0, bk, a_hat, **options)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, WHOLE_SCAN[impl][1](p, acc0, bk, a_hat, **options))
 
 
 @pytest.mark.cuda
@@ -833,20 +841,68 @@ def test_mma_whole_scan_kernels_match_twins_on_all_0x80_key_on_card(cuda_device,
 @pytest.mark.parametrize("impl", ["fusedp", "fusedw", "fusedc"])
 def test_mma_whole_scan_kernels_refuse_other_degrees_on_card(cuda_device, monkeypatch, impl):
     """Kernels E, F and G take Kernel B's degrees, N a power of two from 64 to
-    512: N=32 and large_2048's N=2048 raise ValueError before any launch,
-    and the twin does not stand in."""
+    4096: N=32 raises ValueError before any launch, and the twin does not
+    stand in; N=2048 (large_2048), in blocks of 512, runs once and equals
+    the twin."""
     fn, twin, options, kernel = WHOLE_SCAN[impl]
-    monkeypatch.setattr(brk, twin.__name__, lambda *a, **k: pytest.fail("the twin ran"))
-    base = get_params("nano")
     before = kernel.launches
-    for k1, n in ((2, 32), (2, 2048)):
-        acc0 = to_torch_u32(np.zeros((1, k1, n), np.uint32), cuda_device)
-        bk = to_torch_u32(np.zeros((1, k1 * base.pbs_decomposer.levels, k1, n), np.uint32),
-                          cuda_device)
-        a_hat = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
-        with pytest.raises(ValueError, match="from 64 to 512"):
-            fn(base, acc0, bk, a_hat, **options)
+    cases = {}
+    for name, n in (("nano", 32), ("large_2048", 2048)):
+        p = get_params(name)
+        k1 = p.glwe_dimension + 1
+        rng = np.random.default_rng(n)
+        cases[n] = (p, to_torch_u32(rnd_u32(rng, (1, k1, n)), cuda_device),
+                    to_torch_u32(rnd_u32(rng, (1, k1 * p.pbs_decomposer.levels, k1, n)),
+                                 cuda_device),
+                    torch.from_numpy(rng.integers(0, 2 * n, (1, 1), dtype=np.int32))
+                    .to(cuda_device))
+    with monkeypatch.context() as m:
+        m.setattr(brk, twin.__name__, lambda *a, **k: pytest.fail("the twin ran"))
+        with pytest.raises(ValueError, match="from 64 to 4096"):
+            fn(*cases[32], **options)
     assert kernel.launches == before
+    got = fn(*cases[2048], **options)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, twin(*cases[2048], **options))
+
+
+#: every mode of Kernels B, E, F and G: impl -> (wrapper, twin, options, kernel)
+ALL_WHOLE_SCAN = {
+    "fused": (brk.blind_rotate_fused, brk.blind_rotate_fused_ref, {}, brk.KERNEL),
+    "fusedb": (brk.blind_rotate_fused, brk.blind_rotate_fused_ref, {"balanced": True},
+               brk.KERNEL),
+    **WHOLE_SCAN,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", list(ALL_WHOLE_SCAN))
+@pytest.mark.parametrize("name,batch,key", [
+    ("large_2048", 8, "random"), ("large_2048", 5, "0x80"), ("large_4096", 3, "random"),
+    ("large_4096", 2, "0x80")])
+def test_whole_scan_kernels_match_twins_at_large_degrees_on_card(cuda_device, impl, name,
+                                                                 batch, key):
+    """Every mode of Kernels B, E, F and G at large_2048 and large_4096,
+    where they run the circulant in 512 x 512 blocks: 3 steps, one launch,
+    equal to the twin, on a random key with low-byte-0x80 words and on a key
+    whose every byte is 0x80; B=5 leaves the last CTA part-filled (4 or 2
+    samples per CTA), and so do B=3 and B=2 at large_4096 for Kernel B (2
+    per CTA)."""
+    fn, twin, options, kernel = ALL_WHOLE_SCAN[impl]
+    p = get_params(name)
+    acc0, bk, a_hat = whole_scan_inputs(p, batch, 130 + batch, cuda_device, steps=3)
+    if key == "0x80":
+        bk = torch.full_like(bk, 0x80808080 - (1 << 32))
+    before = kernel.launches
+    got = fn(p, acc0, bk, a_hat, **options)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    spc = _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind_of(kernel), p, s),
+                                      _build.smem_budget(cuda_device))
+    assert brk.last_plan[kernel.symbol]["samples_per_cta"] == spc
+    assert brk.last_plan[kernel.symbol]["threads"] == (384 if impl.startswith("fusedp") else 256)
+    assert torch.equal(got, twin(p, acc0, bk, a_hat, **options))
 
 
 @pytest.mark.cuda

@@ -15,7 +15,9 @@ kernel against its twin on the card.
 """
 
 import functools
+import itertools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,10 +27,14 @@ import tfhe_tpu as jtfhe
 import tfhe_tpu.golden.model as g
 import tfhe_tpu_torch as ttfhe
 from tfhe_tpu.models import bootstrap as jboot
+from tfhe_tpu.models import glwe as jglwe
 from tfhe_tpu.models import lwe as jlwe
 from tfhe_tpu.models import test_vector as jtv
 from tfhe_tpu.models.keys import make_server_key as j_make_server_key
+from tfhe_tpu.ops.decomposer import decompose_balanced_planes as j_balanced_planes
 from tfhe_tpu.ops.pallas import blind_rotate_kernel as jbrk
+from tfhe_tpu.ops.poly import ep_combine as j_ep_combine
+from tfhe_tpu.ops.poly import ep_contract_matmul as j_ep_contract_matmul
 from tfhe_tpu.ops.torus import switch_modulus as j_switch_modulus
 from tfhe_tpu_torch.models import bootstrap as tboot
 from tfhe_tpu_torch.models.keys import keys_from_numpy
@@ -41,6 +47,7 @@ from tfhe_tpu_torch.ops.torus import to_numpy_u32, to_torch_u32
 from tfhe_tpu_torch.params import get_params as t_get_params
 
 NANO_B = 8
+BLOCK = brk.BLOCK  # the blocked tiling's width (csrc/mma_row.cuh:kBlock)
 BITS_A = np.array([0, 0, 1, 1], dtype=np.uint32)
 BITS_B = np.array([0, 1, 0, 1], dtype=np.uint32)
 
@@ -114,25 +121,31 @@ def test_truncation_follows_the_sign_twist():
 # ---------------------------------------------------------------------------
 
 
-def limb_plane_copies(g_row):
-    """The 16 staged copies of ``csrc/limb_planes.cuh:build_planes`` for one
-    key row g u32[N], as bytes [limb l, shift s, word w, byte j] =
-    P_l[(4w + s + j) mod 2N], P_l[x] = limb_l(ext[(-x) mod 2N]), ext = [g, -g]."""
+def limb_plane_copies(g_row, base=0, bw=None):
+    """The 16 staged copies of ``csrc/limb_planes.cuh:build_window`` for one
+    key row g u32[N] and the window of 2*bw entries from ``base`` (the whole
+    planes, ``build_planes``, by default), as bytes [limb l, shift s, word w,
+    byte j] = P_l[(base + 4w + s + j) mod 2N], w < bw/2, P_l[x] =
+    limb_l(ext[(-x) mod 2N]), ext = [g, -g]."""
     n = g_row.size
+    bw = bw or n
     ext = np.concatenate([g_row, (np.uint32(0) - g_row).astype(np.uint32)])
     words = (ext + np.uint32(0x80808080)) ^ np.uint32(0x80808080)
     limbs = np.stack([((words >> np.uint32(8 * l)) & np.uint32(0xFF)).astype(np.uint8)
                       for l in range(4)]).view(np.int8)  # limb_l(ext[i])
-    x = 4 * np.arange(n // 2)[None, :, None] + np.arange(4)[:, None, None] + np.arange(4)
-    return limbs[:, (-x) % (2 * n)]  # [4, 4, N/2, 4]
+    x = base + 4 * np.arange(bw // 2)[None, :, None] + np.arange(4)[:, None, None] + np.arange(4)
+    return limbs[:, (-x) % (2 * n)]  # [4, 4, bw/2, 4]
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_b_a_reads(n):
+def kernel_b_a_reads(n, blocked=False):
     """Where ``blind_rotate_kernel.cu:mma_row`` reads its A fragments, and
-    which output each M row is.  A warp owns T = 4 tiles (2 at N=64) 32
-    outputs apart, from o_t = 32T*(warp // 2) + 16*(warp % 2); row g of a
-    tile is output o_t + 32a + 8 + g, row g+8 output o_t + 32a + g.  Lane
+    which output each M row is, for a row (or, ``blocked``, a 512-wide block
+    of the blocked tiling, where x0 gains 512 and no read needs the mask or
+    the wrap copy: the window holds every entry the block reads) n wide.  A
+    warp owns T = 4 tiles (2 at N=64) 32 outputs apart, from o_t =
+    32T*(warp // 2) + 16*(warp % 2); row g of a tile is output o_t + 32a +
+    8 + g, row g+8 output o_t + 32a + g.  Lane
     (g, t) reads copy x0 & 3, x0 = (4t - o_t - 8 - g) mod 2N; tile a at K
     step j takes the quad loaded at step j - a, words ((x0 >> 2) + 8(j - a))
     mod N/2 + 2i of the copy (its wrap copy past N/2), i = 0..3, as its
@@ -148,8 +161,10 @@ def kernel_b_a_reads(n):
     o_t = 32 * tiles * (wv // 2) + 16 * (wv % 2)
     for g in range(8):
         for t in range(4):
-            x0 = (4 * t - o_t - 8 - g) % (2 * n)
+            x0 = (4 * t - o_t - 8 - g + (BLOCK if blocked else 0)) % (2 * n)
             base = ((x0 >> 2) + 8 * (jv - av)) % (n // 2)
+            if blocked:  # the unmasked words w .. w+6 lie in the window
+                assert np.array_equal(base, (x0 >> 2) + 8 * (jv - av)) and base.max() + 6 < n // 2
             for i, (row, k0) in enumerate(((g, 4 * t), (g + 8, 4 * t), (g, 16 + 4 * t),
                                            (g + 8, 16 + 4 * t))):
                 for j in range(4):
@@ -172,10 +187,15 @@ def kernel_b_step(digits, words, spc, key_limbs, b_op=None):
     spc < 8 repeat a sample; or ``b_op`` [8, R, N], as read from a staged
     digit block), and the accumulator fragment's c0..c3 of lane (g, t), rows
     g (c0, c1) and g+8 (c2, c3), samples 2t, 2t+1, stored at the rows'
-    outputs for the samples < spc."""
+    outputs for the samples < spc.  Above N = 512 each product runs block
+    by block (``mma_row.cuh``): block (ob, kc) reads the window of 2*512
+    entries from 512 (kc - ob - 1) mod 2N, its inputs 512 kc .. +512 and
+    outputs 512 ob .. +512."""
     _, r_rows, n = digits.shape
     c_cols = words.shape[1]
-    flat, out = kernel_b_a_reads(n)
+    bw = min(n, BLOCK)
+    blocks = n // bw
+    flat, out = kernel_b_a_reads(bw, n > BLOCK)
     lmin = 4 - key_limbs
     if b_op is None:
         b_op = digits[np.arange(8) % spc]
@@ -183,17 +203,19 @@ def kernel_b_step(digits, words, spc, key_limbs, b_op=None):
     # the (M row of every tile, sample) each lane's c0..c3 hold, samples < spc
     frag = [(g + 8 * (i >> 1), 2 * t + (i & 1)) for g in range(8) for t in range(4)
             for i in range(4) if 2 * t + (i & 1) < spc]
-    rows = (np.arange(0, n, 16)[:, None] + np.array([f[0] for f in frag])).reshape(-1)
-    samples = np.tile(np.array([f[1] for f in frag]), n // 16)
+    rows = (np.arange(0, bw, 16)[:, None] + np.array([f[0] for f in frag])).reshape(-1)
+    samples = np.tile(np.array([f[1] for f in frag]), bw // 16)
     sums = np.zeros((spc, c_cols * 4, n), np.int64)
-    for r in range(r_rows):
-        for c in range(c_cols):
-            planes = limb_plane_copies(words[r, c])
-            planes = np.concatenate([planes, planes[:, :, :8]], axis=2)  # the wrap copy
-            for l in range(lmin, 4):
-                a_op = np.take(planes[l], flat).astype(np.float64)  # [N rows, N]
-                d = (a_op @ b_op[:, r].T).astype(np.int64)  # [N rows, 8 samples]
-                np.add.at(sums[:, c * 4 + l], (samples, out[rows]), d[rows, samples])
+    for r, c, ob, kc in itertools.product(range(r_rows), range(c_cols), range(blocks),
+                                          range(blocks)):
+        base = BLOCK * (kc - ob - 1) % (2 * n) if blocks > 1 else 0
+        planes = limb_plane_copies(words[r, c], base, bw)
+        planes = np.concatenate([planes, planes[:, :, :8]], axis=2)  # the wrap copy
+        for l in range(lmin, 4):
+            a_op = np.take(planes[l], flat).astype(np.float64)  # [bw rows, bw]
+            d = (a_op @ b_op[:, r, kc * bw:(kc + 1) * bw].T).astype(np.int64)  # [bw rows, 8]
+            np.add.at(sums[:, c * 4 + l, ob * bw:(ob + 1) * bw], (samples, out[rows]),
+                      d[rows, samples])
     assert np.abs(sums).max() < 2**31  # exact in s32
     limb_w = np.array([1 << (8 * l) for l in range(4)], np.uint64)
     delta = (sums.reshape(spc, c_cols, 4, n).astype(np.uint64)
@@ -229,22 +251,61 @@ def test_kernel_b_fragment_reads_match_twin_step(name, spc, key):
         assert np.array_equal(delta, to_numpy_u32(poly.ep_combine(want, k1)))
 
 
+@pytest.mark.parametrize("spc,key", [(4, "random"), (2, "0x80"), (1, "low-0x80")])
+def test_blocked_fragment_reads_match_twin_step(spc, key):
+    """The blocked tiling at large_2048 (N=2048: 4 x 4 blocks of 512), read
+    fragment by fragment: each block's A registers from the window of 2*512
+    entries of its base (no read leaves the window's 256 words), the B
+    operand of input chunk kc read from a staged [R][spc][N + 16] digit
+    block at kc*128 words past the lane's row start (whose padding holds
+    garbage), and each pass's outputs at offset 512 ob, give the twin's limb
+    sums ``ep_contract_matmul`` and delta ``ep_combine`` bit for bit, at
+    key_limbs 4 and 3, for the samples per CTA of Kernel B (4) and of
+    Kernels E, F and G (2) at large_2048 and one, on a random key, one whose
+    every byte is 0x80 and one whose every low byte is 0x80.  Two key rows
+    of the step: the window reads do not depend on the row."""
+    p = t_get_params("large_2048")
+    k1, n = p.glwe_dimension + 1, p.degree
+    r, blocks, drow = 2, n // BLOCK, n + 16
+    rng = np.random.default_rng(97)
+    words = rnd_u32(rng, (r, k1, n))
+    if key == "low-0x80":
+        words = (words & np.uint32(0xFFFFFF00)) | np.uint32(0x80)
+    elif key == "0x80":
+        words = np.full((r, k1, n), 0x80808080, np.uint32)
+    digits = rng.integers(-8, 17, size=(spc, r, n), dtype=np.int8)
+    block = rng.integers(-128, 128, size=r * spc * drow, dtype=np.int8)
+    rv, bb, i = np.meshgrid(np.arange(r), np.arange(spc), np.arange(n), indexing="ij")
+    block[(rv * spc + bb) * drow + i] = digits[bb, rv, i]
+    b_op = np.stack([np.concatenate([b_operand_from_block(block, row, spc, n, kc, BLOCK)
+                                     for kc in range(blocks)], axis=1) for row in range(r)],
+                    axis=1)
+    assert np.array_equal(b_op, digits[np.arange(8) % spc])
+    for key_limbs in (4, 3):
+        sums, delta = kernel_b_step(digits, words, spc, key_limbs, b_op)
+        want = poly.ep_contract_matmul(torch.from_numpy(digits), to_torch_u32(words), key_limbs)
+        assert np.array_equal(sums, want.numpy())
+        assert np.array_equal(delta, to_numpy_u32(poly.ep_combine(want, k1)))
+
+
 # ---------------------------------------------------------------------------
 # Kernel G's cluster step and Kernel F's digit ring, emulated
 # ---------------------------------------------------------------------------
 
 
-def b_operand_from_block(block, row, spc, n):
-    """The B operand [8 samples, N] that ``mma_row.cuh:mma_row`` reads for
-    digit row ``row`` of a [rows][spc][N + 16] int8 block (flat): lane (g, t)
-    starts at word (row*spc + g mod spc)*(N + 16)/4 + t (``lane_of``) and at
+def b_operand_from_block(block, row, spc, n, kc=0, bw=None):
+    """The B operand [8 samples, bw] that ``mma_row.cuh:mma_row`` reads for
+    input chunk kc (bw wide; the whole row by default) of digit row ``row``
+    of a [rows][spc][N + 16] int8 block (flat): lane (g, t) starts at word
+    (row*spc + g mod spc)*(N + 16)/4 + t (``lane_of``), kc*bw/4 more, and at
     K step j loads words 8j and 8j + 4 from there, the PTX m16n8k32 B
     fragment's bytes k = 32j + 4t .. +3 and 32j + 16 + 4t .. +3 of column g."""
-    out = np.zeros((8, n), np.int8)
+    bw = bw or n
+    out = np.zeros((8, bw), np.int8)
     for g in range(8):
         for t in range(4):
-            word0 = (row * spc + g % spc) * (n + 16) // 4 + t
-            for j in range(n // 32):
+            word0 = (row * spc + g % spc) * (n + 16) // 4 + t + kc * bw // 4
+            for j in range(bw // 32):
                 for half in (0, 1):
                     at = 4 * (word0 + 8 * j + 4 * half)
                     k = 32 * j + 16 * half + 4 * t
@@ -294,65 +355,72 @@ def test_kernel_g_cluster_step_matches_twin_column(name, spc, key):
             assert np.array_equal(delta[:, 0], want_delta[:, col])
 
 
-def wide_pipe_schedule(c_cols, levels, steps):
+def wide_pipe_schedule(c_cols, levels, steps, blocks=1):
     """Kernel F's digit ring as ``wide_pipe_kernel.cu`` runs it: a list of
     barrier intervals (what the CTA does between two barriers), each a list
     of events:
-      ('build', step, poly, slot, lo_row, hi_row) - digits of poly at step
-        into its slot, chunks lo_row .. hi_row-1 of the R row-sized chunks,
+      ('build', step, poly, slot, lo, hi) - digits of poly at step into its
+        slot, chunks lo .. hi-1 of the U = R*blocks^2 unit-sized chunks,
         reading accumulator plane poly;
-      ('row', step, c, r, slot) - column c's mmas on digit row r, read from
-        the slot of poly r // levels;
-      ('column', step, c) - column c's sums added to accumulator plane c.
+      ('row', step, c, r, slot, ob, kc) - column c's mmas on input chunk kc
+        of digit row r for output block ob (one unit; the whole row when
+        blocks = 1), read from the slot of poly r // levels;
+      ('pass', step, c, ob) - the pass's sums added to block ob of
+        accumulator plane c; ('column', step, c) - column c is done.
     Poly p of step s sits in slot (s*C + p) mod (2C-1).  Step 0's polys are
-    built before the loop; poly c-1 of step s+1 is built chunk r in row r of
-    column c; poly C-1 of step s+1 after column C-1, in an interval of its
-    own."""
+    built before the loop; poly c-1 of step s+1 is built chunk u in unit u
+    of column c; poly C-1 of step s+1 after column C-1, in an interval of
+    its own."""
     rows = c_cols * levels
+    units = rows * blocks * blocks
 
     def slot(step, p):
         return (step * c_cols + p) % (2 * c_cols - 1)
 
-    intervals = [[("build", 0, p, slot(0, p), 0, rows) for p in range(c_cols)]]
+    intervals = [[("build", 0, p, slot(0, p), 0, units) for p in range(c_cols)]]
     for step in range(steps):
         last = step + 1 == steps
-        for c in range(c_cols):
-            for r in range(rows):
-                ev = [("row", step, c, r, slot(step, r // levels))]
-                if not last and c > 0:
-                    ev.append(("build", step + 1, c - 1, slot(step + 1, c - 1), r, r + 1))
-                if r == rows - 1:
+        for c, ob, r, kc in itertools.product(range(c_cols), range(blocks), range(rows),
+                                              range(blocks)):
+            uc = (ob * rows + r) * blocks + kc
+            ev = [("row", step, c, r, slot(step, r // levels), ob, kc)]
+            if not last and c > 0:
+                ev.append(("build", step + 1, c - 1, slot(step + 1, c - 1), uc, uc + 1))
+            if r == rows - 1 and kc == blocks - 1:
+                ev.append(("pass", step, c, ob))
+                if ob == blocks - 1:
                     ev.append(("column", step, c))
-                intervals.append(ev)
+            intervals.append(ev)
         if not last:
             intervals.append([("build", step + 1, c_cols - 1, slot(step + 1, c_cols - 1), 0,
-                               rows)])
+                               units)])
     return intervals
 
 
-@pytest.mark.parametrize("c_cols", [1, 2, 3])
-def test_kernel_f_digit_ring_schedule(c_cols):
+def check_wide_pipe_schedule(c_cols, blocks):
     """Over 3 steps: no interval both reads and writes a slot or both reads
     and updates an accumulator plane; a slot is never overwritten while its
     digits have a read to come; every column of every step reads all R rows
-    of its own step's digits, each complete; and a poly's digits are built
-    from its plane once that plane's column of the step is done."""
+    of its own step's digits, each complete, in every (ob, kc) unit; and a
+    poly's digits are built from its plane once that plane's column of the
+    step is done."""
     levels, steps = 6, 3
     rows = c_cols * levels
-    held = {}  # slot -> [(step, poly), chunk rows built]
+    units = rows * blocks * blocks
+    held = {}  # slot -> [(step, poly), chunks built]
     done = set()  # (step, c) columns whose sums are in their plane
-    read = {}  # (step, c) -> rows read
-    for ev in wide_pipe_schedule(c_cols, levels, steps):
+    read = {}  # (step, c) -> units read
+    for ev in wide_pipe_schedule(c_cols, levels, steps, blocks):
         written = {e[3] for e in ev if e[0] == "build"}
         assert not written & {e[4] for e in ev if e[0] == "row"}
         assert not ({e[2] for e in ev if e[0] == "build"}
-                    & {e[2] for e in ev if e[0] == "column"})
+                    & {e[2] for e in ev if e[0] == "pass"})
         for e in ev:
             if e[0] == "row":
-                _, step, c, r, slot = e
+                _, step, c, r, slot, ob, kc = e
                 content, chunks = held[slot]
-                assert content == (step, r // levels) and chunks == set(range(rows))
-                read.setdefault((step, c), set()).add(r)
+                assert content == (step, r // levels) and chunks == set(range(units))
+                read.setdefault((step, c), set()).add((ob, r, kc))
             elif e[0] == "build":
                 _, step, poly, slot, lo, hi = e
                 # its plane holds step-1's sums of column poly: done, or step 0
@@ -365,28 +433,56 @@ def test_kernel_f_digit_ring_schedule(c_cols):
                     held[slot] = [(step, poly), set()]
                 held[slot][1].update(range(lo, hi))
         done.update((e[1], e[2]) for e in ev if e[0] == "column")
-    assert read == {(s, c): set(range(rows)) for s in range(steps) for c in range(c_cols)}
+    every = set(itertools.product(range(blocks), range(rows), range(blocks)))
+    assert read == {(s, c): every for s in range(steps) for c in range(c_cols)}
 
 
-@pytest.mark.parametrize("balanced", [False, True])
-def test_kernel_f_digit_ring_replay_matches_twin(nano_case, balanced):
+@pytest.mark.parametrize("c_cols", [1, 2, 3])
+def test_kernel_f_digit_ring_schedule(c_cols):
+    """``check_wide_pipe_schedule`` at N <= 512: one unit per row."""
+    check_wide_pipe_schedule(c_cols, 1)
+
+
+@pytest.mark.parametrize("c_cols,blocks", [(1, 2), (2, 2), (2, 4), (3, 2)])
+def test_kernel_f_blocked_digit_ring_schedule(c_cols, blocks):
+    """``check_wide_pipe_schedule`` in the blocked tiling (N > 512): units
+    (c, ob, r, kc), a poly's next digits in R*blocks^2 chunks."""
+    check_wide_pipe_schedule(c_cols, blocks)
+
+
+def replay_contraction(drow, bk_row, c, ob, kc, bw, key_limbs=4):
+    """One unit of a column's sums: digit row drow [B, 1, N] (input chunk kc,
+    bw wide) against key row bk_row [1, C, N] for output block ob of column
+    c, as int32 limb sums [B, 4, bw]."""
+    chunk = torch.zeros_like(drow)
+    chunk[..., kc * bw:(kc + 1) * bw] = drow[..., kc * bw:(kc + 1) * bw]
+    part = poly.ep_contract_matmul(chunk, bk_row, key_limbs)[:, 4 * c:4 * c + 4]
+    return part[..., ob * bw:(ob + 1) * bw]
+
+
+@pytest.mark.parametrize("balanced,blocks", [
+    pytest.param(False, 1, id="False"), pytest.param(True, 1, id="True"),
+    pytest.param(False, 2, id="False-blocks2")])
+def test_kernel_f_digit_ring_replay_matches_twin(nano_case, balanced, blocks):
     """``wide_pipe_schedule`` run on the twin's step functions at nano (one
-    CTA of 8 samples: each row-chunk builds coefficients [r*chunk,
-    (r+1)*chunk) of the 8*N, chunk = ceil(8*N / R)) equals
-    ``blind_rotate_fused_wide_pipe_ref``."""
+    CTA of 8 samples: each unit-chunk builds coefficients [u*chunk,
+    (u+1)*chunk) of the 8*N, chunk = ceil(8*N / U)) equals
+    ``blind_rotate_fused_wide_pipe_ref``; with blocks = 2 the nano row runs
+    as 2 x 2 blocks of 32, as the blocked tiling runs its blocks of 512."""
     p, acc0_np, bk_np, a_hat_np, _ = nano_case
     dp = p.pbs_decomposer
     k1, n, levels = p.glwe_dimension + 1, p.degree, dp.levels
     rows = k1 * levels
+    bw = n // blocks
     acc0, bk = to_torch_u32(acc0_np), to_torch_u32(bk_np)
     a_hat = torch.from_numpy(a_hat_np)
     b, steps = acc0.shape[0], bk.shape[0]
     decompose = decompose_balanced_planes if balanced else decompose_signed_planes
-    chunk = -(-b * n // rows)
+    chunk = -(-b * n // (rows * blocks * blocks))
     acc = acc0.clone()
     ring = torch.zeros((2 * k1 - 1, levels, b * n), dtype=torch.int8)
     sums = None
-    for ev in wide_pipe_schedule(k1, levels, steps):
+    for ev in wide_pipe_schedule(k1, levels, steps, blocks):
         for e in ev:
             if e[0] == "build":
                 _, step, poly_, slot, lo, hi = e
@@ -395,13 +491,13 @@ def test_kernel_f_digit_ring_replay_matches_twin(nano_case, balanced):
                 items = slice(lo * chunk, min(b * n, hi * chunk))
                 ring[slot][:, items] = digits.reshape(levels, b * n)[:, items]
             elif e[0] == "row":
-                _, step, c, r, slot = e
+                _, step, c, r, slot, ob, kc = e
                 drow = ring[slot][r % levels].reshape(b, 1, n)
-                part = poly.ep_contract_matmul(drow, bk[step, r:r + 1])[:, 4 * c:4 * c + 4]
-                sums = part if r == 0 else sums + part
-            else:
-                _, step, c = e
-                acc[:, c] = acc[:, c] + poly.ep_combine(sums, 1)[:, 0]
+                part = replay_contraction(drow, bk[step, r:r + 1], c, ob, kc, bw)
+                sums = part if r == 0 and kc == 0 else sums + part
+            elif e[0] == "pass":
+                _, step, c, ob = e
+                acc[:, c, ob * bw:(ob + 1) * bw] += poly.ep_combine(sums, 1)[:, 0]
     want = brk.blind_rotate_fused_wide_pipe_ref(p, acc0, bk, a_hat, balanced)
     assert torch.equal(acc, want)
 
@@ -411,64 +507,71 @@ def test_kernel_f_digit_ring_replay_matches_twin(nano_case, balanced):
 # ---------------------------------------------------------------------------
 
 
-def pipe_job_rows(job, c_cols, levels, plane_bufs):
-    """``pipe_kernel.cu:job_rows``: the rows lo..hi of the (step, c, r)
-    sequence in which the producers build digit job st*C + p (poly p of
-    step st >= 1): from plane_bufs rows after the last row e of column p of
-    step st-1 to the row before the first that reads it (row p*levels of
-    column 0 of step st), and at most R rows after e."""
-    rows = c_cols * levels
+def pipe_job_rows(job, c_cols, levels, plane_bufs, blocks=1):
+    """``pipe_kernel.cu:job_rows``: the units lo..hi of the (step, c, ob, r,
+    kc) sequence (rows when blocks = 1) in which the producers build digit
+    job st*C + p (poly p of step st >= 1): from plane_bufs units after the
+    last unit e of column p of step st-1 to the unit before the first that
+    reads it (row p*levels of column 0 of step st), and at most a column's
+    U = R*blocks^2 units after e."""
+    units = c_cols * levels * blocks * blocks
     st, p = divmod(job, c_cols)
-    e = ((st - 1) * c_cols + p) * rows + rows - 1
-    f = st * c_cols * rows + p * levels
-    hi = min(f - 1, e + rows)
+    e = ((st - 1) * c_cols + p) * units + units - 1
+    f = st * c_cols * units + p * levels * blocks
+    hi = min(f - 1, e + units)
     return min(e + plane_bufs, hi), hi
 
 
-def pipe_schedule(c_cols, levels, steps, plane_bufs):
+def pipe_schedule(c_cols, levels, steps, plane_bufs, blocks=1):
     """Kernel E's two roles as ``pipe_kernel.cu`` runs them: (prologue,
     producers, consumers), each a list of operations in program order:
       ('wait', barrier, parity) - until the barrier's phase of that parity
         has completed; ('arrive', barrier) - one arrival (each role counts as
         one party: every barrier waits for the whole of one role);
-      ('plane', q, buf) - the producers build row q's planes into a buffer;
+      ('plane', u, buf) - the producers build unit u's planes into a buffer
+        (a row's when blocks = 1, a block's window otherwise);
       ('build', step, poly, slot, chunk, chunks) - digits of poly at step,
         chunk of chunks, into a ring slot, reading accumulator plane poly;
-      ('row', step, c, r, buf, slot) - the consumers' mmas on row r of
-        column c: planes from buf, digits from the slot of poly r // levels;
-      ('column', step, c) - column c's sums added to accumulator plane c.
+      ('row', step, c, r, buf, slot, ob, kc) - the consumers' mmas on input
+        chunk kc of row r for output block ob of column c (one unit):
+        planes from buf, digits from the slot of poly r // levels;
+      ('pass', step, c, ob) - the pass's sums added to accumulator plane c;
+      ('column', step, c) - column c is in accumulator plane c.
     Barriers: ('full', b), ('empty', b) per plane buffer and ('column', c).
     No barrier says a slot is filled: a poly's last chunk is built before
-    the planes of the first row that reads it.  Step 0's digits are the
+    the planes of the first unit that reads it.  Step 0's digits are the
     prologue's."""
     rows = c_cols * levels
-    nslots, jobs, total = 2 * c_cols - 1, steps * c_cols, steps * c_cols * rows
+    nslots, jobs = 2 * c_cols - 1, steps * c_cols
+    total = steps * c_cols * rows * blocks * blocks
     prologue = [("build", 0, p, p, 0, 1) for p in range(c_cols)] if steps else []
     prod = []
     job = c_cols
-    lo, hi = pipe_job_rows(job, c_cols, levels, plane_bufs) if job < jobs else (0, -1)
-    for q in range(total):
-        b, use = q % plane_bufs, q // plane_bufs
-        prod += [("wait", ("empty", b), (use & 1) ^ 1), ("plane", q, b), ("arrive", ("full", b))]
-        if job < jobs and q >= lo:
+    lo, hi = (pipe_job_rows(job, c_cols, levels, plane_bufs, blocks) if job < jobs
+              else (0, -1))
+    for u in range(total):
+        b, use = u % plane_bufs, u // plane_bufs
+        prod += [("wait", ("empty", b), (use & 1) ^ 1), ("plane", u, b), ("arrive", ("full", b))]
+        if job < jobs and u >= lo:
             st, p = divmod(job, c_cols)
-            if q == lo:
+            if u == lo:
                 prod.append(("wait", ("column", p), (st - 1) & 1))
-            prod.append(("build", st, p, job % nslots, q - lo, hi - lo + 1))
-            if q == hi:
+            prod.append(("build", st, p, job % nslots, u - lo, hi - lo + 1))
+            if u == hi:
                 job += 1
                 if job < jobs:
-                    lo, hi = pipe_job_rows(job, c_cols, levels, plane_bufs)
+                    lo, hi = pipe_job_rows(job, c_cols, levels, plane_bufs, blocks)
     cons = []
-    q = 0
-    for step in range(steps):
-        for c in range(c_cols):
-            for r in range(rows):
-                b, slot = q % plane_bufs, (step * c_cols + r // levels) % nslots
-                cons += [("wait", ("full", b), (q // plane_bufs) & 1),
-                         ("row", step, c, r, b, slot), ("arrive", ("empty", b))]
-                q += 1
-            cons += [("column", step, c), ("arrive", ("column", c))]
+    u = 0
+    for step, c in itertools.product(range(steps), range(c_cols)):
+        for ob in range(blocks):
+            for r, kc in itertools.product(range(rows), range(blocks)):
+                b, slot = u % plane_bufs, (step * c_cols + r // levels) % nslots
+                cons += [("wait", ("full", b), (u // plane_bufs) & 1),
+                         ("row", step, c, r, b, slot, ob, kc), ("arrive", ("empty", b))]
+                u += 1
+            cons.append(("pass", step, c, ob))
+        cons += [("column", step, c), ("arrive", ("column", c))]
     return prologue, prod, cons
 
 
@@ -506,31 +609,32 @@ def run_pipe(schedule, policy):
     return order
 
 
-@pytest.mark.parametrize("c_cols", [1, 2, 3])
-def test_kernel_e_pipe_schedule(c_cols):
-    """Over 3 steps, with the producers as far ahead as the barriers let
-    them, as far behind, and in 20 random interleavings: no plane buffer or
-    digit slot is written while a read of its old content is still to come;
-    every row's mmas read their own row's planes and the complete digits of
-    their own step; poly p of step s+1 is built only after column p of step
-    s is in its accumulator plane, and column p of step s+1 adds to that
-    plane only after every chunk of it is built; every column of every step
-    reads all R rows.  No interleaving deadlocks."""
+def check_pipe_schedule(c_cols, blocks, policies):
+    """Over 3 steps, under each policy of ``run_pipe``: no plane buffer or
+    digit slot is written while a read of its old content is still to
+    come; every unit's mmas read their own unit's planes and the complete
+    digits of their own step; poly p of step s+1 is built only after column
+    p of step s is in its accumulator plane, and column p of step s+1 adds
+    to that plane only after every chunk of it is built; every column of
+    every step reads all R rows in every (ob, kc).  No interleaving
+    deadlocks."""
     levels, steps, plane_bufs = 6, 3, 3
     rows = c_cols * levels
-    schedule = pipe_schedule(c_cols, levels, steps, plane_bufs)
-    for policy in ("producers", "consumers", *range(20)):
-        planes = {}  # buffer -> row whose planes it holds
+    schedule = pipe_schedule(c_cols, levels, steps, plane_bufs, blocks)
+    every = set(itertools.product(range(blocks), range(rows), range(blocks)))
+    per_poly = c_cols * levels * blocks * blocks  # units that read one poly's digits
+    for policy in policies:
+        planes = {}  # buffer -> unit whose planes it holds
         slots = {}  # slot -> [(step, poly), chunks built, chunks]
-        reads = {}  # (step, poly) -> rows read of its digits
-        rows_read = {}  # (step, c) -> rows read
+        reads = {}  # (step, poly) -> units read of its digits
+        units_read = {}  # (step, c) -> (ob, r, kc) read
         done = set()  # (step, c) columns in their accumulator plane
-        read = set()  # rows whose mmas have run
+        read = set()  # units whose mmas have run
         for op in run_pipe(schedule, policy):
             if op[0] == "plane":
-                _, row, buf = op
-                assert buf not in planes or planes[buf] in read  # its old row is read
-                planes[buf] = row
+                _, unit, buf = op
+                assert buf not in planes or planes[buf] in read  # its old unit is read
+                planes[buf] = unit
             elif op[0] == "build":
                 _, st, p, slot, chunk, chunks = op
                 assert st == 0 or (st - 1, p) in done  # its input is final
@@ -538,46 +642,67 @@ def test_kernel_e_pipe_schedule(c_cols):
                 held = slots.get(slot)
                 if held is None or held[0] != (st, p):
                     # the old digits have no read to come
-                    assert held is None or reads.get(held[0], 0) == c_cols * levels
+                    assert held is None or reads.get(held[0], 0) == per_poly
                     slots[slot] = held = [(st, p), set(), chunks]
                 held[1].add(chunk)
             elif op[0] == "row":
-                _, st, c, r, buf, slot = op
-                index = (st * c_cols + c) * rows + r
+                _, st, c, r, buf, slot, ob, kc = op
+                index = (((st * c_cols + c) * blocks + ob) * rows + r) * blocks + kc
                 assert planes[buf] == index  # its own planes
                 content, built, chunks = slots[slot]
                 assert content == (st, r // levels) and built == set(range(chunks))
                 read.add(index)
                 reads[content] = reads.get(content, 0) + 1
-                rows_read.setdefault((st, c), set()).add(r)
-            else:
-                _, st, c = op
-                assert rows_read[st, c] == set(range(rows))
+                units_read.setdefault((st, c), set()).add((ob, r, kc))
+            elif op[0] == "pass":
+                _, st, c, ob = op
                 content, built, chunks = slots[(st * c_cols + c) % (2 * c_cols - 1)]
                 assert content == (st, c) and built == set(range(chunks))
+            elif op[0] == "column":
+                _, st, c = op
+                assert units_read[st, c] == every
                 done.add((st, c))
-        assert rows_read == {(s, c): set(range(rows)) for s in range(steps)
-                             for c in range(c_cols)}
+        assert units_read == {(s, c): every for s in range(steps) for c in range(c_cols)}
         assert len(done) == steps * c_cols
 
 
-@pytest.mark.parametrize("key_limbs", [4, 3])
-def test_kernel_e_pipe_replay_matches_twin(nano_case, key_limbs):
+@pytest.mark.parametrize("c_cols", [1, 2, 3])
+def test_kernel_e_pipe_schedule(c_cols):
+    """``check_pipe_schedule`` at N <= 512 (one unit per row), with the
+    producers as far ahead as the barriers let them, as far behind, and in
+    20 random interleavings."""
+    check_pipe_schedule(c_cols, 1, ("producers", "consumers", *range(20)))
+
+
+@pytest.mark.parametrize("c_cols,blocks", [(1, 2), (2, 2), (2, 4), (3, 2)])
+def test_kernel_e_blocked_pipe_schedule(c_cols, blocks):
+    """``check_pipe_schedule`` in the blocked tiling (N > 512): units (c, ob,
+    r, kc), the column barrier after a column's last pass, digit jobs
+    spread over units; producers ahead, behind and 5 random
+    interleavings."""
+    check_pipe_schedule(c_cols, blocks, ("producers", "consumers", *range(5)))
+
+
+@pytest.mark.parametrize("key_limbs,blocks", [
+    pytest.param(4, 1, id="4"), pytest.param(3, 1, id="3"), pytest.param(4, 2, id="4-blocks2")])
+def test_kernel_e_pipe_replay_matches_twin(nano_case, key_limbs, blocks):
     """``pipe_schedule`` run on the twin's step functions at nano (one CTA
     of 8 samples: chunk j of J builds coefficients [j*m, (j+1)*m) of the
     8*N, m = ceil(8N/J) rounded up to a multiple of 4, as the kernel's
     threads take 4 coefficients each), in a random interleaving of the two
-    roles, equals ``blind_rotate_fused_pipe_ref``."""
+    roles, equals ``blind_rotate_fused_pipe_ref``; with blocks = 2 the nano
+    row runs as 2 x 2 blocks of 32."""
     p, acc0_np, bk_np, a_hat_np, _ = nano_case
     dp = p.pbs_decomposer
     k1, n, levels = p.glwe_dimension + 1, p.degree, dp.levels
+    bw = n // blocks
     acc0, bk = to_torch_u32(acc0_np), to_torch_u32(bk_np)
     a_hat = torch.from_numpy(a_hat_np)
     b, steps = acc0.shape[0], bk.shape[0]
     acc = acc0.clone()
     ring = torch.zeros((2 * k1 - 1, levels, b * n), dtype=torch.int8)
     sums = None
-    for op in run_pipe(pipe_schedule(k1, levels, steps, 3), 7):
+    for op in run_pipe(pipe_schedule(k1, levels, steps, 3, blocks), 7):
         if op[0] == "build":
             _, step, poly_, slot, chunk, chunks = op
             plane = acc[:, poly_]
@@ -586,13 +711,13 @@ def test_kernel_e_pipe_replay_matches_twin(nano_case, key_limbs):
             items = slice(chunk * size, min(b * n, (chunk + 1) * size))
             ring[slot][:, items] = digits.reshape(levels, b * n)[:, items]
         elif op[0] == "row":
-            _, step, c, r, _, slot = op
+            _, step, c, r, _, slot, ob, kc = op
             drow = ring[slot][r % levels].reshape(b, 1, n)
-            part = poly.ep_contract_matmul(drow, bk[step, r:r + 1], key_limbs)[:, 4 * c:4 * c + 4]
-            sums = part if r == 0 else sums + part
-        elif op[0] == "column":
-            _, step, c = op
-            acc[:, c] = acc[:, c] + poly.ep_combine(sums, 1)[:, 0]
+            part = replay_contraction(drow, bk[step, r:r + 1], c, ob, kc, bw, key_limbs)
+            sums = part if r == 0 and kc == 0 else sums + part
+        elif op[0] == "pass":
+            _, step, c, ob = op
+            acc[:, c, ob * bw:(ob + 1) * bw] += poly.ep_combine(sums, 1)[:, 0]
     want = brk.blind_rotate_fused_pipe_ref(p, acc0, bk, a_hat, key_limbs)
     assert torch.equal(acc, want)
 
@@ -702,6 +827,61 @@ def test_truncated_impls_decode_nand(insecure, impl):
     assert np.array_equal(to_numpy_u32(got), 1 - (BITS_A & BITS_B))
 
 
+# ---------------------------------------------------------------------------
+# large_2048 and large_4096: the twins against the JAX scans
+# ---------------------------------------------------------------------------
+
+
+def large_case(name, seed):
+    """Seeded inputs at a large degree: 2 steps, B=3, a random key."""
+    p = t_get_params(name)
+    k1, n = p.glwe_dimension + 1, p.degree
+    rng = np.random.default_rng(seed)
+    acc0 = rnd_u32(rng, (3, k1, n))
+    bk = rnd_u32(rng, (2, k1 * p.pbs_decomposer.levels, k1, n))
+    a_hat = rng.integers(0, 2 * n, size=(2, 3), dtype=np.int32)
+    return p, acc0, bk, a_hat
+
+
+@pytest.mark.parametrize("name", ["large_2048", "large_4096"])
+def test_twin_matches_jax_matmul_scan_at_large_degrees(name):
+    """The carry-chain digits at N=2048 and 4096, where the kernels run in
+    blocks: the port's wrapper (on the CPU its twin, the twin of 'fused',
+    'fusedp', 'fusedw' and 'fusedc' alike) against the JAX package's
+    ``rotate_chunk_xla(..., 'matmul')`` (its scan of the reference's step),
+    bit for bit.  Pallas in interpret mode is too slow here."""
+    p, acc0, bk, a_hat = large_case(name, 98)
+    want = jboot.rotate_chunk_xla(jtfhe.get_params(name), jnp.asarray(acc0), jnp.asarray(bk),
+                                  jnp.asarray(a_hat), "matmul")
+    got = brk.blind_rotate_fused(p, to_torch_u32(acc0), to_torch_u32(bk),
+                                 torch.from_numpy(a_hat))
+    assert np.array_equal(to_numpy_u32(got), np.asarray(want, np.uint32))
+
+
+def test_balanced_twin_matches_jax_scan_at_large_2048():
+    """The balanced digits ('fusedb', 'fusedwb') at N=2048: the twin against
+    a JAX scan of the closed-form decomposition
+    (``tfhe_tpu/ops/decomposer.py:decompose_balanced_planes``) and the JAX
+    matmul contraction, bit for bit."""
+    p, acc0, bk, a_hat = large_case("large_2048", 99)
+    jp = jtfhe.get_params("large_2048")
+    k1, levels = jp.glwe_dimension + 1, jp.pbs_decomposer.levels
+
+    @jax.jit
+    def step(acc, bk_i, a_i):
+        rot = jglwe.mul_monomial(acc, a_i)
+        digs = jnp.moveaxis(j_balanced_planes(rot - acc, jp.pbs_decomposer), 0, -2)
+        digs = digs.reshape(digs.shape[0], k1 * levels, jp.degree)
+        return acc + j_ep_combine(j_ep_contract_matmul(digs, bk_i), k1)
+
+    acc = jnp.asarray(acc0)
+    for i in range(bk.shape[0]):
+        acc = step(acc, jnp.asarray(bk[i]), jnp.asarray(a_hat[i]))
+    got = brk.blind_rotate_fused(p, to_torch_u32(acc0), to_torch_u32(bk),
+                                 torch.from_numpy(a_hat), balanced=True)
+    assert np.array_equal(to_numpy_u32(got), np.asarray(acc, np.uint32))
+
+
 def test_valid_impls_mirror_jax():
     """The JAX package's impls, in its order, less the interpret modes (the
     CPU twins play their role); 'conv' resolves to itself."""
@@ -763,27 +943,59 @@ def test_samples_per_cta_under_smaller_budgets():
     assert _build.pick_samples_per_cta(lambda s: 10 * s, 35) == 2
 
 
+#: the H100's plans at the large degrees: kind -> (samples per CTA, bytes)
+LARGE_PLANS = {
+    "large_2048": {"fused": (4, 214800), "pipe": (2, 174240), "wide_pipe": (2, 157264),
+                   "cols": (2, 165640)},
+    "large_4096": {"fused": (2, 230792), "pipe": (1, 190328), "wide_pipe": (1, 173352),
+                   "cols": (1, 181636)}}
+
+
 def test_samples_per_cta_at_larger_degrees():
-    """N=2048: Kernel B fits fewer samples; Kernels E, F and G take only
-    Kernel B's degrees (N from 64 to 512), so their wrappers refuse
-    large_2048 with ValueError before any launch (as Kernel B's C entry
-    point refuses it)."""
-    p = t_get_params("large_2048")
-    picks = {kind: _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s),
-                                               H100_OPTIN)
-             for kind in ("fused",)}
-    assert picks == {"fused": 2}
-    k1, n = p.glwe_dimension + 1, p.degree
-    meta = (torch.empty((1, k1, n), dtype=torch.int32, device="meta"),
-            torch.empty((1, k1 * p.pbs_decomposer.levels, k1, n), dtype=torch.int32,
-                        device="meta"),
-            torch.empty((1, 1), dtype=torch.int32, device="meta"))
-    for fn in (brk.blind_rotate_fused_pipe, brk.blind_rotate_fused_wide_pipe,
-               brk.blind_rotate_fused_cols):
-        with pytest.raises(ValueError, match="from 64 to 512"):
-            fn(p, *meta)
-    assert brk.PIPE_KERNEL.launches == brk.WIDE_PIPE_KERNEL.launches == 0
-    assert brk.COLS_KERNEL.launches == 0
+    """N=2048 and 4096, where Kernels B, E, F and G run the circulant in
+    512 x 512 blocks: their plans on the H100's budget, each with one
+    512-wide window of planes per plane buffer (16 copies of 264 words,
+    16,896 bytes) beside whole raw key rows, and the next sample count over
+    the budget.  Kernel B at large_2048 with 4 samples: 65,536 bytes of
+    accumulators (4*2*2048 words), 2 * 16,896 of planes, 2 * 8,192 of raw
+    rows, 12 * 4 * 2,064 of digits, 16 of exponents.  Each wrapper takes the
+    degree: with meta tensors it gets as far as the device check, and
+    launches nothing."""
+    assert LARGE_PLANS["large_2048"]["fused"][1] == (4 * 4 * 2 * 2048 + 2 * 16896 + 2 * 8192
+                                                     + 12 * 4 * 2064 + 16)
+    kernels = (brk.KERNEL, brk.PIPE_KERNEL, brk.WIDE_PIPE_KERNEL, brk.COLS_KERNEL)
+    before = [k.launches for k in kernels]
+    for name, picks in LARGE_PLANS.items():
+        p = t_get_params(name)
+        for kind, (spc, nbytes) in picks.items():
+            assert _build.pick_samples_per_cta(lambda s: brk.smem_bytes(kind, p, s),
+                                               H100_OPTIN) == spc
+            assert brk.smem_bytes(kind, p, spc) == nbytes
+            assert brk.smem_bytes(kind, p, 2 * spc) > H100_OPTIN
+        k1, n = p.glwe_dimension + 1, p.degree
+        meta = (torch.empty((1, k1, n), dtype=torch.int32, device="meta"),
+                torch.empty((1, k1 * p.pbs_decomposer.levels, k1, n), dtype=torch.int32,
+                            device="meta"),
+                torch.empty((1, 1), dtype=torch.int32, device="meta"))
+        for fn in (brk.blind_rotate_fused, brk.blind_rotate_fused_pipe,
+                   brk.blind_rotate_fused_wide_pipe, brk.blind_rotate_fused_cols):
+            with pytest.raises(ValueError, match="CPU or CUDA"):
+                fn(p, *meta)
+    assert [k.launches for k in kernels] == before
+
+
+def test_wrappers_refuse_degrees_outside_64_to_4096():
+    """N=32 and N=8192 raise ValueError before anything else, on any device."""
+    p = t_get_params("nano")
+    levels = p.pbs_decomposer.levels
+    for n in (32, 8192):
+        meta = (torch.empty((1, 2, n), dtype=torch.int32, device="meta"),
+                torch.empty((1, 2 * levels, 2, n), dtype=torch.int32, device="meta"),
+                torch.empty((1, 1), dtype=torch.int32, device="meta"))
+        for fn in (brk.blind_rotate_fused, brk.blind_rotate_fused_pipe,
+                   brk.blind_rotate_fused_wide_pipe, brk.blind_rotate_fused_cols):
+            with pytest.raises(ValueError, match="from 64 to 4096"):
+                fn(p, *meta)
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,9 @@
 // of gathered ones (181 KB at default_128 with S=8; the wrapper picks S in
 // {8, 4, 2, 1} from the card's opt-in budget), so one CTA per SM: at
 // B=1024 the 128 clusters of 3 run in waves of what the card holds at once
-// (the plan's max_active_clusters, PERF.md).
+// (the plan's max_active_clusters, PERF.md).  Above N = 512 the column
+// runs in Kernel B's 512 x 512 blocks (mma_row.cuh): passes ob, each over
+// units (r, kc), its sums added at offset 512 ob of the plane.
 
 #include <cstdint>
 #include <cooperative_groups.h>
@@ -49,37 +51,45 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using limb_planes::build_planes;
+using limb_planes::block_width;
+using limb_planes::build_window;
 using limb_planes::cp_async16;
 using limb_planes::cp_async_commit_wait;
 using limb_planes::digit_row_bytes;
+using limb_planes::kBlock;
+using limb_planes::kMaxDegree;
 using limb_planes::mma_row;
+using limb_planes::next_unit;
 using limb_planes::plane_set_words;
 using limb_planes::tiles_per_warp;
+using limb_planes::window_base;
 using whole_scan::Shape;
 
-constexpr int kMaxThreads = 256;  // N/(16*T) warps: 8 at N=512
+constexpr int kMaxThreads = 256;  // N/(16*T) warps: 8 at N=512, and above it
 constexpr int kMaxCluster = 8;    // the portable cluster size
 
 __host__ size_t smem_bytes(const Shape& s) {
   const size_t S = s.spc, N = s.N, L = s.levels, R = s.C * L, drow = digit_row_bytes(s.N);
-  return 4 * S * N                                            // accumulator plane p
-         + 4 * 2 * static_cast<size_t>(plane_set_words(s.N))  // two plane buffers
+  return 4 * S * N                                                         // accumulator plane p
+         + 4 * 2 * static_cast<size_t>(plane_set_words(block_width(s.N)))  // two plane buffers
          + 4 * 2 * N                                          // two raw key rows
          + 2 * L * S * drow                                   // own digits, by parity
          + R * S * drow                                       // gathered digits
          + 4 * S;                                             // exponents
 }
 
-// L: key limbs kept (4, or 3 with limb 0 dropped); T: tiles_per_warp(N).
-template <int L, int T>
+// L: key limbs kept (4, or 3 with limb 0 dropped); T: tiles_per_warp(N);
+// kBlocked: N > kBlock, the circulant in blocks (mma_row.cuh).
+template <int L, int T, bool kBlocked>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 cols_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
             const int32_t* __restrict__ a_hat, uint32_t* __restrict__ out, Shape s) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int S = s.spc, N = s.N, C = s.C, R = C * s.levels, CN = C * N;
-  const int mask2 = 2 * N - 1, ps = plane_set_words(N), drow = digit_row_bytes(N);
+  // the blocks of the column and of a row, and their width
+  const int blocks = kBlocked ? N / kBlock : 1, bw = kBlocked ? kBlock : N;
+  const int mask2 = 2 * N - 1, ps = plane_set_words(bw), drow = digit_row_bytes(N);
   const int blk = s.levels * S * drow;  // one poly's digit block
   uint32_t* plane = reinterpret_cast<uint32_t*>(smem);    // [S][N]
   uint32_t* planes = plane + S * N;                        // [2][16 copies]
@@ -92,17 +102,17 @@ cols_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
   const int p = static_cast<int>(cluster.block_rank());
   const int b0 = (blockIdx.x / C) * S;
   const int nb = min(S, s.B - b0);
-  const limb_planes::Lane ln = limb_planes::lane_of<L, T>(N, S);
+  const limb_planes::Lane ln = limb_planes::lane_of<L, T, kBlocked>(N, S);
 
   for (int idx = tid; idx < S * N; idx += nthr) {
     const int bb = idx / N;
     plane[idx] =
         bb < nb ? acc0[(static_cast<size_t>(b0) + bb) * CN + p * N + idx - bb * N] : 0u;
   }
-  // key row q = (step, r) of column p, 16-byte pieces into graw[q & 1]
-  const int rows = s.n_steps * R;
+  // key row q = (step, ob, r) of column p, 16-byte pieces into graw[q & 1]
+  const int rows = s.n_steps * blocks * R, units = rows * blocks;
   auto issue = [&](int q) {
-    const int step = q / R, r = q - step * R;
+    const int step = q / (R * blocks), r = q % R;
     const uint32_t* src = bk + ((static_cast<size_t>(step) * R + r) * C + p) * N;
     uint32_t* dst = graw + (q & 1) * N;
     for (int ch = tid; ch < N / 4; ch += nthr) cp_async16(dst + 4 * ch, src + 4 * ch, true);
@@ -111,11 +121,11 @@ cols_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
     issue(0);
     cp_async_commit_wait();
     __syncthreads();
-    build_planes<true>(graw, planes, N);
+    build_window<true>(graw, planes, N, bw, window_base<kBlocked>(0, 0, N));
     if (rows > 1) issue(1);
   }
 
-  int q = 0;
+  int u = 0;  // unit (q, kc): chunk kc of row q's inputs
   for (int step = 0; step < s.n_steps; ++step) {
     int8_t* mine = own + (step & 1) * blk;
     __syncthreads();  // last step's plane updates
@@ -135,26 +145,31 @@ cols_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
       reinterpret_cast<uint4*>(dig + pp * blk)[v] =
           reinterpret_cast<const uint4*>(cluster.map_shared_rank(mine, pp))[v];
     }
-    // the first row's barrier below also orders the gather before the mmas
-    int sums[L][T][4];
+    // the first unit's barrier below also orders the gather before the mmas
+    for (int ob = 0; ob < blocks; ++ob) {  // pass: output block ob
+      int sums[L][T][4];
 #pragma unroll
-    for (int l = 0; l < L; ++l)
+      for (int l = 0; l < L; ++l)
 #pragma unroll
-      for (int a = 0; a < T; ++a)
+        for (int a = 0; a < T; ++a)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sums[l][a][i] = 0;
-    for (int r = 0; r < R; ++r, ++q) {
-      // row q+1's words have landed and every warp is done with row q-1,
-      // whose plane buffer and raw row are free
-      cp_async_commit_wait();
-      __syncthreads();
-      if (q + 2 < rows) issue(q + 2);
-      mma_row<L, T>(sums, planes + (q & 1) * ps + ln.copy,
-                    reinterpret_cast<const uint32_t*>(dig + r * S * drow) + ln.dig, N,
-                    ln.x0 >> 2, q + 1 < rows ? graw + ((q + 1) & 1) * N : nullptr,
-                    planes + ((q + 1) & 1) * ps);
+          for (int i = 0; i < 4; ++i) sums[l][a][i] = 0;
+      for (int ru = 0; ru < R * blocks; ++ru, ++u) {
+        const int r = ru / blocks, kc = ru - r * blocks, q = u / blocks;
+        // row q+1's words have landed and every warp is done with unit u-1,
+        // whose plane buffer (and raw row, past its last chunk) is free
+        cp_async_commit_wait();
+        __syncthreads();
+        if (kc == blocks - 1 && q + 2 < rows) issue(q + 2);
+        mma_row<L, T>(sums, planes + (u & 1) * ps + ln.copy,
+                      reinterpret_cast<const uint32_t*>(dig + r * S * drow) + ln.dig +
+                          kc * (bw / 4),
+                      bw, ln.x0 >> 2,
+                      next_unit<kBlocked>(graw, planes + ((u + 1) & 1) * ps, N, q, kc, ob, ru,
+                                          R, blocks, u + 1 == units));
+      }
+      limb_planes::add_column<L, T>(sums, plane, N, ob * bw, ln, S);
     }
-    limb_planes::add_column<L, T>(sums, plane, N, 0, ln, S);
   }
   cluster.sync();  // no CTA leaves while a peer may still read its blocks
   for (int idx = tid; idx < nb * N; idx += nthr) {
@@ -163,14 +178,14 @@ cols_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
   }
 }
 
-template <int L, int T>
+template <int L, int T, bool kBlocked>
 int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const Shape& s,
            int* info, cudaStream_t stream) {
-  const int threads = 32 * (s.N / (16 * T));
+  const int threads = 32 * (block_width(s.N) / (16 * T));
   const size_t smem = smem_bytes(s);
   if (smem > static_cast<size_t>(whole_scan::smem_optin()))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(cols_kernel<L, T>,
+  cudaError_t err = cudaFuncSetAttribute(cols_kernel<L, T, kBlocked>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -187,7 +202,7 @@ int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, cols_kernel<L, T>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&active, cols_kernel<L, T, kBlocked>, &cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < 1) return static_cast<int>(cudaErrorInvalidValue);
   info[0] = s.spc;
@@ -195,9 +210,9 @@ int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const
   info[2] = static_cast<int>(smem);
   info[3] = static_cast<int>(cfg.gridDim.x);
   info[4] = active;
-  err = cudaLaunchKernelEx(&cfg, cols_kernel<L, T>, static_cast<const uint32_t*>(acc0),
-                           static_cast<const uint32_t*>(bk), static_cast<const int32_t*>(a_hat),
-                           static_cast<uint32_t*>(out), s);
+  err = cudaLaunchKernelEx(&cfg, cols_kernel<L, T, kBlocked>,
+                           static_cast<const uint32_t*>(acc0), static_cast<const uint32_t*>(bk),
+                           static_cast<const int32_t*>(a_hat), static_cast<uint32_t*>(out), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -212,7 +227,8 @@ extern "C" {
 // receives the plan: samples per CTA, threads per CTA, dynamic shared memory
 // bytes, CTAs, and the clusters the card holds at once
 // (cudaOccupancyMaxActiveClusters).  Returns cudaErrorInvalidValue unless N
-// is a power of two with 64 <= N <= 512 (Kernel B's tiles), 1 <= C <=
+// is a power of two with 64 <= N <= kMaxDegree (Kernel B's tiles and
+// blocks), 1 <= C <=
 // kMaxCluster, B >= 1, bk is 16-byte aligned, key_limbs is 3 or 4, spc is 1,
 // 2, 4 or 8, the shared memory fits the card's opt-in budget and the card
 // can hold one cluster.
@@ -220,17 +236,20 @@ int blind_rotate_fused_cols(const void* acc0, const void* bk, const void* a_hat,
                             int n_steps, int B, int C, int N, int levels, int log_base,
                             int ignored_bits, int key_limbs, int spc, int* info,
                             void* stream) {
-  if (N < 64 || N > 512 || (N & (N - 1)) || C < 1 || C > kMaxCluster || B < 1 ||
+  if (N < 64 || N > kMaxDegree || (N & (N - 1)) || C < 1 || C > kMaxCluster || B < 1 ||
       reinterpret_cast<uintptr_t>(bk) % 16 || (key_limbs != 3 && key_limbs != 4) ||
       (spc != 1 && spc != 2 && spc != 4 && spc != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s{n_steps, B, C, N, levels, log_base, ignored_bits, 0, 0u, key_limbs, spc};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N > kBlock)
+    return key_limbs == 4 ? launch<4, 4, true>(acc0, bk, a_hat, out, s, info, st)
+                          : launch<3, 4, true>(acc0, bk, a_hat, out, s, info, st);
   if (tiles_per_warp(N) == 4)
-    return key_limbs == 4 ? launch<4, 4>(acc0, bk, a_hat, out, s, info, st)
-                          : launch<3, 4>(acc0, bk, a_hat, out, s, info, st);
-  return key_limbs == 4 ? launch<4, 2>(acc0, bk, a_hat, out, s, info, st)
-                        : launch<3, 2>(acc0, bk, a_hat, out, s, info, st);
+    return key_limbs == 4 ? launch<4, 4, false>(acc0, bk, a_hat, out, s, info, st)
+                          : launch<3, 4, false>(acc0, bk, a_hat, out, s, info, st);
+  return key_limbs == 4 ? launch<4, 2, false>(acc0, bk, a_hat, out, s, info, st)
+                        : launch<3, 2, false>(acc0, bk, a_hat, out, s, info, st);
 }
 
 const char* tfhe_cuda_error_string(int err) {

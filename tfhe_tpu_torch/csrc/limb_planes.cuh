@@ -15,6 +15,11 @@
 // j = 0..3, circularly), and every such register is one aligned 32-bit
 // shared load: copy x & 3, word x >> 2.  The copies lie 8 banks apart, so
 // the ~20 distinct words a warp's load touches fall in distinct banks.
+//
+// A window of the planes (build_window) holds P_l[base + y] for y = 0 ..
+// 2nb - 1 only, nb <= N: the whole-scan kernels stage one such window of
+// 2*512 entries per 512 x 512 block of the circulant at N > 512
+// (mma_row.cuh), where the whole planes would pass the shared memory.
 
 #pragma once
 
@@ -59,20 +64,22 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The 16 plane copies from the raw key row graw (u32 [N] in shared memory):
-// copy (l, s) starts at planes + (l*4 + s) * copy_words(N).  With kWrap its
-// words 0..7 are repeated after its last (words N/2 .. N/2+7), so that a
-// read a few words past a word index taken mod N/2 needs no second mask.  A
-// thread of the CTA builds word w of all 16 copies from the 7 limb words
-// ext[-(4w + k)], k = 0..6.
+// The 16 plane copies of the window [base, base + 2nb) of P (mod 2N) from the
+// raw key row graw (u32 [N] in shared memory): copy (l, s) starts at planes
+// + (l*4 + s) * copy_words(nb), and its word w holds P_l[base + 4w + s + j],
+// j = 0..3.  With kWrap its words 0..7 are repeated after its last (words
+// nb/2 .. nb/2+7), so that a read a few words past a word index taken mod
+// nb/2 needs no second mask.  A thread of the CTA builds word w of all 16
+// copies from the 7 limb words ext[-(base + 4w + k)], k = 0..6.
 template <bool kWrap = false>
-__device__ __forceinline__ void build_planes(const uint32_t* graw, uint32_t* planes, int N) {
-  const int cw = copy_words(N), mask2 = 2 * N - 1;
-  for (int w = threadIdx.x; w < N / 2; w += blockDim.x) {
+__device__ __forceinline__ void build_window(const uint32_t* graw, uint32_t* planes, int N,
+                                             int nb, int base) {
+  const int cw = copy_words(nb), mask2 = 2 * N - 1;
+  for (int w = threadIdx.x; w < nb / 2; w += blockDim.x) {
     uint32_t e[7];
 #pragma unroll
     for (int k = 0; k < 7; ++k) {
-      const int i = (-(4 * w + k)) & mask2;
+      const int i = (-(base + 4 * w + k)) & mask2;
       const uint32_t v = i < N ? graw[i] : 0u - graw[i - N];
       // balanced limbs: byte l of (v + 0x80808080) minus 128 == that byte ^ 0x80
       e[k] = (v + 0x80808080u) ^ 0x80808080u;
@@ -91,10 +98,16 @@ __device__ __forceinline__ void build_planes(const uint32_t* graw, uint32_t* pla
       dst[3 * 4 * cw] = __byte_perm(hi01, hi23, 0x7632);
       if (kWrap && w < 8) {
 #pragma unroll
-        for (int l = 0; l < kLimbs; ++l) dst[l * 4 * cw + N / 2] = dst[l * 4 * cw];
+        for (int l = 0; l < kLimbs; ++l) dst[l * 4 * cw + nb / 2] = dst[l * 4 * cw];
       }
     }
   }
+}
+
+// The whole planes of graw: the window of all 2N entries.
+template <bool kWrap = false>
+__device__ __forceinline__ void build_planes(const uint32_t* graw, uint32_t* planes, int N) {
+  build_window<kWrap>(graw, planes, N, N, 0);
 }
 
 }  // namespace limb_planes

@@ -44,6 +44,13 @@
 // is built before row f's planes, so a consumer that has waited for those
 // finds its digits complete.
 //
+// Above N = 512 the circulant runs in Kernel B's 512 x 512 blocks
+// (mma_row.cuh): the sequence is one of units (step, c, ob, r, kc), each a
+// window of planes in the ring, the consumers' sums of pass (c, ob) stay in
+// registers over its R*blocks units, a raw row comes in once per (pass, r)
+// and is freed after its last window, and a digit job spreads over the
+// units rather than the rows (a column is R*blocks^2 units).
+//
 // Handshakes, each an mbarrier waited on with its phase parity: plane
 // buffer full (producers arrive) and empty (consumers), raw row landed (the
 // bulk copy's bytes) and column c in the accumulators (consumers).  A named
@@ -66,14 +73,21 @@
 
 namespace {
 
+using limb_planes::block_width;
 using limb_planes::digit_row_bytes;
+using limb_planes::kBlock;
+using limb_planes::kMaxDegree;
 using limb_planes::mma_row;
+using limb_planes::NextPlanes;
 using limb_planes::plane_set_words;
 using limb_planes::smem_addr;
 using limb_planes::tiles_per_warp;
+using limb_planes::window_base;
 using whole_scan::Shape;
 
-constexpr int kConsumerWarps = 8;  // N/(16T) at N=512
+// the consumer warps: N/(16T) own a column's outputs up to N = 512 (T = 4
+// tiles of 16; at N=64, 2 warps of T = 2), and a block's 512 outputs above
+constexpr int kConsumerWarps = 8;
 constexpr int kProducerWarps = 4;  // one warpgroup
 constexpr int kConsumers = 32 * kConsumerWarps, kProducers = 32 * kProducerWarps;
 constexpr int kThreads = kConsumers + kProducers;
@@ -134,29 +148,29 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
 __host__ size_t smem_bytes(const Shape& s) {
   const size_t S = s.spc, C = s.C, N = s.N, slot = s.levels * S * digit_row_bytes(s.N);
   return 4 * S * C * N                                                 // accumulators
-         + 4 * kPlaneBufs * static_cast<size_t>(plane_set_words(s.N))  // plane buffers
+         + 4 * kPlaneBufs * static_cast<size_t>(plane_set_words(block_width(s.N)))  // planes
          + 4 * 2 * N                                                   // two raw key rows
          + (2 * C - 1) * slot                                          // the digit ring
          + 8 * (2 * kPlaneBufs + 2 + C)  // mbarriers: full and empty, raw rows, columns
          + 4 * 2 * S;                                                  // exponents, by parity
 }
 
-// limb_planes::build_planes<true> for the nthr threads from tid, of the L
-// kept limbs only (4 - L .. 3, the ones mma_row reads), each thread's 7
-// words ext[j - k] (j = -4w mod 2N) read as two aligned 16-byte groups and
-// one word rather than as 7 words 4 apart across the warp (4-way bank
-// conflicts).
+// limb_planes::build_window<true> (of bw from base) for the nthr threads
+// from tid, of the L kept limbs only (4 - L .. 3, the ones mma_row reads),
+// each thread's 7 words ext[j - k] (j = -(base + 4w) mod 2N, base a
+// multiple of 4) read as two aligned 16-byte groups and one word rather
+// than as 7 words 4 apart across the warp (4-way bank conflicts).
 template <int L>
 __device__ __forceinline__ void build_kept_planes(const uint32_t* graw, uint32_t* planes, int N,
-                                                  int tid, int nthr) {
-  const int cw = limb_planes::copy_words(N), mask2 = 2 * N - 1;
+                                                  int bw, int base, int tid, int nthr) {
+  const int cw = limb_planes::copy_words(bw), mask2 = 2 * N - 1;
   auto ext4 = [&](int x) {  // ext[x .. x+3] for x a multiple of 4
     uint4 v = *reinterpret_cast<const uint4*>(graw + (x & (N - 1)));
     if (x >= N) v = make_uint4(0u - v.x, 0u - v.y, 0u - v.z, 0u - v.w);
     return v;
   };
-  for (int w = tid; w < N / 2; w += nthr) {
-    const int j = (-4 * w) & mask2;
+  for (int w = tid; w < bw / 2; w += nthr) {
+    const int j = (-(base + 4 * w)) & mask2;
     const uint4 a = ext4((j - 4) & mask2), c = ext4((j - 8) & mask2);
     uint32_t e[7] = {j < N ? graw[j] : 0u - graw[j - N], a.w, a.z, a.y, a.x, c.w, c.z};
 #pragma unroll
@@ -174,30 +188,35 @@ __device__ __forceinline__ void build_kept_planes(const uint32_t* graw, uint32_t
 #pragma unroll
       for (int l = 4 - L; l < 4; ++l) {
         dst[l * 4 * cw] = limb[l];
-        if (w < 8) dst[l * 4 * cw + N / 2] = limb[l];  // the wrap copy
+        if (w < 8) dst[l * 4 * cw + bw / 2] = limb[l];  // the wrap copy
       }
     }
   }
 }
 
-// Rows lo..hi of the (step, c, r) sequence, in which the producers build
-// digit job i = st*C + p (poly p of step st >= 1): see the header.
-__device__ __forceinline__ void job_rows(int i, int C, int R, int levels, int& lo, int& hi) {
-  const int st = i / C, p = i - st * C;
-  const int e = ((st - 1) * C + p) * R + R - 1, f = st * C * R + p * levels;
-  hi = min(f - 1, e + R);
+// Units lo..hi of the (step, c, ob, r, kc) sequence (rows when N <= 512),
+// in which the producers build digit job i = st*C + p (poly p of step st
+// >= 1): see the header.  A column is U = R*blocks^2 units.
+__device__ __forceinline__ void job_rows(int i, int C, int R, int levels, int blocks, int& lo,
+                                         int& hi) {
+  const int st = i / C, p = i - st * C, U = R * blocks * blocks;
+  const int e = ((st - 1) * C + p) * U + U - 1, f = st * C * U + p * levels * blocks;
+  hi = min(f - 1, e + U);
   lo = min(e + kPlaneBufs, hi);
 }
 
-// L: key limbs kept (4, or 3 with limb 0 dropped); T: tiles_per_warp(N).
-template <int L, int T>
+// L: key limbs kept (4, or 3 with limb 0 dropped); T: tiles_per_warp(N);
+// kBlocked: N > kBlock, the circulant in blocks (mma_row.cuh).
+template <int L, int T, bool kBlocked>
 __global__ void __launch_bounds__(kThreads, 1)
 pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
             const int32_t* __restrict__ a_hat, uint32_t* __restrict__ out, Shape s) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = s.spc, N = s.N, C = s.C, levels = s.levels, R = C * levels;
   const int CN = C * N, SN = S * N, mask2 = 2 * N - 1;
-  const int ps = plane_set_words(N), drow = digit_row_bytes(N);
+  // the blocks of a column and of a row, and their width
+  const int blocks = kBlocked ? N / kBlock : 1, bw = kBlocked ? kBlock : N;
+  const int ps = plane_set_words(bw), drow = digit_row_bytes(N);
   const int blk = levels * S * drow, nslots = 2 * C - 1;
   uint32_t* acc = reinterpret_cast<uint32_t*>(smem);                // [S][C][N]
   uint32_t* planes = acc + S * CN;                                   // [kPlaneBufs][16 copies]
@@ -212,8 +231,9 @@ pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * S;
   const int nb = min(S, s.B - b0);
-  const int workers = 32 * (N / (16 * T));  // the consumer threads that own outputs
-  const int rows = s.n_steps * R * C, jobs = s.n_steps * C;
+  const int workers = 32 * (bw / (16 * T));  // the consumer threads that own outputs
+  // raw key rows (step, c, ob, r) and units (row, kc)
+  const int rows = s.n_steps * C * blocks * R, units = rows * blocks, jobs = s.n_steps * C;
 
   // the digits of coefficients [lo, hi) (multiples of 4) of the S*N of poly
   // p at step st into its ring slot, 4 per thread of the nthr from t0
@@ -250,8 +270,8 @@ pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
     if constexpr (kProducerWarps % 4 == 0)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     const int pt = tid - kConsumers;
-    auto load_row = [&](int q) {  // key row q = (step, c, r) into raw row q & 1
-      const int step = q / (R * C), cr = q - step * R * C, c = cr / R, r = cr - c * R;
+    auto load_row = [&](int q) {  // key row q = (step, c, ob, r) into raw row q & 1
+      const int r = q % R, step = q / (R * blocks * C), c = (q / (R * blocks)) % C;
       bulk_load(graw + (q & 1) * N, bk + ((static_cast<size_t>(step) * R + r) * C + c) * N,
                 4 * N, landed + (q & 1));
     };
@@ -260,25 +280,26 @@ pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
       if (rows > 1) load_row(1);
     }
     int job = C, lo = 0, hi = -1;
-    if (job < jobs) job_rows(job, C, R, levels, lo, hi);
-    for (int q = 0; q < rows; ++q) {
-      const int b = q % kPlaneBufs;
-      mbar_wait(landed + (q & 1), (q >> 1) & 1);
-      mbar_wait(empty + b, ((q / kPlaneBufs) & 1) ^ 1);  // consumers are past row q-kPlaneBufs
-      build_kept_planes<L>(graw + (q & 1) * N, planes + b * ps, N, pt, kProducers);
+    if (job < jobs) job_rows(job, C, R, levels, blocks, lo, hi);
+    for (int u = 0; u < units; ++u) {
+      const int q = u / blocks, kc = u - q * blocks, b = u % kPlaneBufs;
+      const int base = window_base<kBlocked>((q / R) % blocks, kc, N);
+      if (kc == 0) mbar_wait(landed + (q & 1), (q >> 1) & 1);
+      mbar_wait(empty + b, ((u / kPlaneBufs) & 1) ^ 1);  // consumers are past unit u-kPlaneBufs
+      build_kept_planes<L>(graw + (q & 1) * N, planes + b * ps, N, bw, base, pt, kProducers);
       mbar_arrive(full + b);
-      const bool in_job = job < jobs && q >= lo;
+      const bool in_job = job < jobs && u >= lo;
       const int st = job / C, p = job - st * C;
-      if (in_job && q == lo && p == 0 && pt < S)  // step st's exponents
+      if (in_job && u == lo && p == 0 && pt < S)  // step st's exponents
         a_s[(st & 1) * S + pt] =
             pt < nb ? (a_hat[static_cast<size_t>(st) * s.B + b0 + pt] & mask2) : 0;
-      bar_sync(kBarProducers, kProducers);  // raw row q is read; the exponents are visible
-      if (pt == 0 && q + 2 < rows) load_row(q + 2);
+      bar_sync(kBarProducers, kProducers);  // unit u's planes are built; the exponents visible
+      if (pt == 0 && kc == blocks - 1 && q + 2 < rows) load_row(q + 2);  // raw row q is read
       if (in_job) {
-        if (q == lo) mbar_wait(column + p, (st - 1) & 1);  // plane p holds step st-1's sums
+        if (u == lo) mbar_wait(column + p, (st - 1) & 1);  // plane p holds step st-1's sums
         const int chunk = (SN + 4 * (hi - lo) + 3) / (4 * (hi - lo + 1)) * 4;  // ceil, by 4
-        digits(st, p, (q - lo) * chunk, min(SN, (q - lo + 1) * chunk), pt, kProducers);
-        if (q == hi && ++job < jobs) job_rows(job, C, R, levels, lo, hi);
+        digits(st, p, (u - lo) * chunk, min(SN, (u - lo + 1) * chunk), pt, kProducers);
+        if (u == hi && ++job < jobs) job_rows(job, C, R, levels, blocks, lo, hi);
       }
     }
   } else {
@@ -286,10 +307,11 @@ pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
     if constexpr (kProducerWarps % 4 == 0)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     if (tid >= workers) return;
-    const limb_planes::Lane ln = limb_planes::lane_of<L, T>(N, S);
-    int q = 0;
+    const limb_planes::Lane ln = limb_planes::lane_of<L, T, kBlocked>(N, S);
+    int u = 0;
     for (int step = 0; step < s.n_steps; ++step) {
-      for (int c = 0; c < C; ++c) {
+      for (int cb = 0; cb < C * blocks; ++cb) {  // pass: column c, output block ob
+        const int c = cb / blocks, ob = cb - c * blocks;
         int sums[L][T][4];
 #pragma unroll
         for (int l = 0; l < L; ++l)
@@ -297,17 +319,18 @@ pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
           for (int a = 0; a < T; ++a)
 #pragma unroll
             for (int i = 0; i < 4; ++i) sums[l][a][i] = 0;
-        for (int r = 0; r < R; ++r, ++q) {
-          const int p = r / levels, b = q % kPlaneBufs;
-          mbar_wait(full + b, (q / kPlaneBufs) & 1);  // and so poly p's digits
+        for (int ru = 0; ru < R * blocks; ++ru, ++u) {  // unit: row r, input chunk kc
+          const int r = ru / blocks, kc = ru - r * blocks;
+          const int p = r / levels, b = u % kPlaneBufs;
+          mbar_wait(full + b, (u / kPlaneBufs) & 1);  // and so poly p's digits
           const int8_t* row = ring + ((step * C + p) % nslots) * blk + (r - p * levels) * S * drow;
           mma_row<L, T>(sums, planes + b * ps + ln.copy,
-                        reinterpret_cast<const uint32_t*>(row) + ln.dig, N, ln.x0 >> 2, nullptr,
-                        nullptr);
+                        reinterpret_cast<const uint32_t*>(row) + ln.dig + kc * (bw / 4), bw,
+                        ln.x0 >> 2, NextPlanes{nullptr, nullptr, N, 0});
           mbar_arrive(empty + b);
         }
-        limb_planes::add_column<L, T>(sums, acc, CN, c * N, ln, S);
-        mbar_arrive(column + c);
+        limb_planes::add_column<L, T>(sums, acc, CN, c * N + ob * bw, ln, S);
+        if (ob == blocks - 1) mbar_arrive(column + c);
       }
     }
     bar_sync(kBarConsumers, workers);
@@ -316,13 +339,13 @@ pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
   }
 }
 
-template <int L, int T>
+template <int L, int T, bool kBlocked>
 int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const Shape& s,
            int* info, cudaStream_t stream) {
   const size_t smem = smem_bytes(s);
   if (smem > static_cast<size_t>(whole_scan::smem_optin()))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(pipe_kernel<L, T>,
+  cudaError_t err = cudaFuncSetAttribute(pipe_kernel<L, T, kBlocked>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -330,7 +353,7 @@ int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const
   info[1] = kThreads;
   info[2] = static_cast<int>(smem);
   info[3] = (s.B + s.spc - 1) / s.spc;
-  pipe_kernel<L, T><<<info[3], kThreads, smem, stream>>>(
+  pipe_kernel<L, T, kBlocked><<<info[3], kThreads, smem, stream>>>(
       static_cast<const uint32_t*>(acc0), static_cast<const uint32_t*>(bk),
       static_cast<const int32_t*>(a_hat), static_cast<uint32_t*>(out), s);
   return static_cast<int>(cudaGetLastError());
@@ -345,24 +368,28 @@ extern "C" {
 // digits, with `spc` samples per CTA.  info (host, 4 ints) receives the
 // plan: samples per CTA, threads per CTA, dynamic shared memory bytes and
 // CTAs.  Returns cudaErrorInvalidValue unless N is a power of two with 64 <=
-// N <= 512 (Kernel B's tiles), C >= 1, B >= 1, bk is 16-byte aligned,
+// N <= kMaxDegree (Kernel B's tiles and blocks), C >= 1, B >= 1, bk is
+// 16-byte aligned,
 // key_limbs is 3 or 4, spc is 1, 2, 4 or 8 and the shared memory fits the
 // card's opt-in budget.
 int blind_rotate_fused_pipe(const void* acc0, const void* bk, const void* a_hat, void* out,
                             int n_steps, int B, int C, int N, int levels, int log_base,
                             int ignored_bits, int key_limbs, int spc, int* info,
                             void* stream) {
-  if (N < 64 || N > 512 || (N & (N - 1)) || C < 1 || B < 1 ||
+  if (N < 64 || N > kMaxDegree || (N & (N - 1)) || C < 1 || B < 1 ||
       reinterpret_cast<uintptr_t>(bk) % 16 || (key_limbs != 3 && key_limbs != 4) ||
       (spc != 1 && spc != 2 && spc != 4 && spc != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s{n_steps, B, C, N, levels, log_base, ignored_bits, 0, 0u, key_limbs, spc};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N > kBlock)
+    return key_limbs == 4 ? launch<4, 4, true>(acc0, bk, a_hat, out, s, info, st)
+                          : launch<3, 4, true>(acc0, bk, a_hat, out, s, info, st);
   if (tiles_per_warp(N) == 4)
-    return key_limbs == 4 ? launch<4, 4>(acc0, bk, a_hat, out, s, info, st)
-                          : launch<3, 4>(acc0, bk, a_hat, out, s, info, st);
-  return key_limbs == 4 ? launch<4, 2>(acc0, bk, a_hat, out, s, info, st)
-                        : launch<3, 2>(acc0, bk, a_hat, out, s, info, st);
+    return key_limbs == 4 ? launch<4, 4, false>(acc0, bk, a_hat, out, s, info, st)
+                          : launch<3, 4, false>(acc0, bk, a_hat, out, s, info, st);
+  return key_limbs == 4 ? launch<4, 2, false>(acc0, bk, a_hat, out, s, info, st)
+                        : launch<3, 2, false>(acc0, bk, a_hat, out, s, info, st);
 }
 
 const char* tfhe_cuda_error_string(int err) {

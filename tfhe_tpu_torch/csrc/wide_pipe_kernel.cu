@@ -35,6 +35,9 @@
 // that has finished.  Shared memory: S*C*N u32 accumulators, two plane
 // buffers, two raw key rows and the ring (214 KB at default_128 with S=8;
 // the wrapper picks S in {8, 4, 2, 1} from the card's opt-in budget).
+// Above N = 512 the circulant runs in Kernel B's 512 x 512 blocks
+// (mma_row.cuh), units (step, c, ob, r, kc) in place of rows, and poly c-1's
+// next digits are built in R*blocks^2 unit-sized chunks under column c.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -45,34 +48,42 @@
 
 namespace {
 
-using limb_planes::build_planes;
+using limb_planes::block_width;
+using limb_planes::build_window;
 using limb_planes::cp_async16;
 using limb_planes::cp_async_commit_wait;
 using limb_planes::digit_row_bytes;
+using limb_planes::kBlock;
+using limb_planes::kMaxDegree;
 using limb_planes::mma_row;
+using limb_planes::next_unit;
 using limb_planes::plane_set_words;
 using limb_planes::tiles_per_warp;
+using limb_planes::window_base;
 using whole_scan::Shape;
 
-constexpr int kMaxThreads = 256;  // N/(16*T) warps: 8 at N=512
+constexpr int kMaxThreads = 256;  // N/(16*T) warps: 8 at N=512, and above it
 
 __host__ size_t smem_bytes(const Shape& s) {
   const size_t S = s.spc, C = s.C, N = s.N, slot = s.levels * S * digit_row_bytes(s.N);
-  return 4 * S * C * N                                        // accumulators
-         + 4 * 2 * static_cast<size_t>(plane_set_words(s.N))  // two plane buffers
-         + 4 * 2 * N                                          // two raw key rows
-         + (2 * C - 1) * slot                                 // the digit ring
-         + 4 * 2 * S;                                         // exponents, by step parity
+  return 4 * S * C * N                                                     // accumulators
+         + 4 * 2 * static_cast<size_t>(plane_set_words(block_width(s.N)))  // two plane buffers
+         + 4 * 2 * N                                                       // two raw key rows
+         + (2 * C - 1) * slot                                              // the digit ring
+         + 4 * 2 * S;                                                      // exponents, by parity
 }
 
-// T: tiles_per_warp(N); the key is exact (all 4 limbs).
-template <int T>
+// T: tiles_per_warp(N); kBlocked: N > kBlock, the circulant in blocks
+// (mma_row.cuh); the key is exact (all 4 limbs).
+template <int T, bool kBlocked>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 wide_pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__ bk,
                  const int32_t* __restrict__ a_hat, uint32_t* __restrict__ out, Shape s) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = s.spc, N = s.N, C = s.C, R = C * s.levels, CN = C * N, SN = S * N;
-  const int mask2 = 2 * N - 1, ps = plane_set_words(N), drow = digit_row_bytes(N);
+  // the blocks of a column and of a row, and their width
+  const int blocks = kBlocked ? N / kBlock : 1, bw = kBlocked ? kBlock : N;
+  const int mask2 = 2 * N - 1, ps = plane_set_words(bw), drow = digit_row_bytes(N);
   const int blk = s.levels * S * drow, nslots = 2 * C - 1;
   uint32_t* acc = reinterpret_cast<uint32_t*>(smem);       // [S][C][N]
   uint32_t* planes = acc + S * CN;                          // [2][16 copies]
@@ -83,7 +94,7 @@ wide_pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int b0 = blockIdx.x * S;
   const int nb = min(S, s.B - b0);
-  const limb_planes::Lane ln = limb_planes::lane_of<4, T>(N, S);
+  const limb_planes::Lane ln = limb_planes::lane_of<4, T, kBlocked>(N, S);
 
   // the digits of coefficients [lo, hi) of the S*N of poly p at step `step`
   // (whose exponents are at a_s[step & 1]) into its ring slot
@@ -102,10 +113,10 @@ wide_pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__
     acc[idx] = bb < nb ? acc0[static_cast<size_t>(b0) * CN + idx] : 0u;
   }
   if (tid < S) a_s[tid] = tid < nb ? (a_hat[b0 + tid] & mask2) : 0;
-  // key row q = (step, c, r) of the sequence, 16-byte pieces into graw[q & 1]
-  const int rows = s.n_steps * R * C;
+  // key row q = (step, c, ob, r) of the sequence, 16-byte pieces into graw[q & 1]
+  const int rows = s.n_steps * C * blocks * R, units = rows * blocks;
   auto issue = [&](int q) {
-    const int step = q / (R * C), cr = q - step * R * C, c = cr / R, r = cr - c * R;
+    const int r = q % R, step = q / (R * blocks * C), c = (q / (R * blocks)) % C;
     const uint32_t* src = bk + ((static_cast<size_t>(step) * R + r) * C + c) * N;
     uint32_t* dst = graw + (q & 1) * N;
     for (int ch = tid; ch < N / 4; ch += nthr) cp_async16(dst + 4 * ch, src + 4 * ch, true);
@@ -116,19 +127,20 @@ wide_pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__
   if (rows > 0) {
     cp_async_commit_wait();
     __syncthreads();
-    build_planes<true>(graw, planes, N);
+    build_window<true>(graw, planes, N, bw, window_base<kBlocked>(0, 0, N));
     if (rows > 1) issue(1);
   }
 
-  const int chunk = (SN + R - 1) / R;  // coefficients built per row
-  int q = 0;
+  const int chunk = (SN + R * blocks * blocks - 1) / (R * blocks * blocks);  // per unit
+  int u = 0;  // unit (q, kc): chunk kc of row q's inputs
   for (int step = 0; step < s.n_steps; ++step) {
     const bool last = step + 1 == s.n_steps;
     // step s+1's exponents take the parity whose digits (step s-1's) are built
     if (!last && tid < S)
       a_s[((step + 1) & 1) * S + tid] =
           tid < nb ? (a_hat[static_cast<size_t>(step + 1) * s.B + b0 + tid] & mask2) : 0;
-    for (int c = 0; c < C; ++c) {
+    for (int cb = 0; cb < C * blocks; ++cb) {  // pass: column c, output block ob
+      const int c = cb / blocks, ob = cb - c * blocks;
       int sums[4][T][4];
 #pragma unroll
       for (int l = 0; l < 4; ++l)
@@ -136,23 +148,28 @@ wide_pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__
         for (int a = 0; a < T; ++a)
 #pragma unroll
           for (int i = 0; i < 4; ++i) sums[l][a][i] = 0;
-      for (int r = 0; r < R; ++r, ++q) {
-        // row q+1's words have landed, every warp is done with row q-1 (whose
-        // plane buffer and raw row are free), and plane c-1 is final
+      for (int ru = 0; ru < R * blocks; ++ru, ++u) {
+        const int r = ru / blocks, kc = ru - r * blocks, q = u / blocks;
+        // row q+1's words have landed, every warp is done with unit u-1 (whose
+        // plane buffer, and raw row past its last chunk, are free), and plane
+        // c-1 is final
         cp_async_commit_wait();
         __syncthreads();
-        if (q + 2 < rows) issue(q + 2);
+        if (kc == blocks - 1 && q + 2 < rows) issue(q + 2);
         const int8_t* slot = ring + ((step * C + r / s.levels) % nslots) * blk;
         const int8_t* row = slot + (r % s.levels) * S * drow;
+        const int uc = ob * R * blocks + ru;  // the unit's place in column c
         auto next_digits = [&] {
-          if (!last && c > 0) digits(step + 1, c - 1, r * chunk, min(SN, (r + 1) * chunk));
+          if (!last && c > 0) digits(step + 1, c - 1, uc * chunk, min(SN, (uc + 1) * chunk));
         };
-        mma_row<4, T>(sums, planes + (q & 1) * ps + ln.copy,
-                      reinterpret_cast<const uint32_t*>(row) + ln.dig, N, ln.x0 >> 2,
-                      q + 1 < rows ? graw + ((q + 1) & 1) * N : nullptr,
-                      planes + ((q + 1) & 1) * ps, next_digits);
+        mma_row<4, T>(sums, planes + (u & 1) * ps + ln.copy,
+                      reinterpret_cast<const uint32_t*>(row) + ln.dig + kc * (bw / 4), bw,
+                      ln.x0 >> 2,
+                      next_unit<kBlocked>(graw, planes + ((u + 1) & 1) * ps, N, q, kc, ob, ru,
+                                          R, blocks, u + 1 == units),
+                      next_digits);
       }
-      limb_planes::add_column<4, T>(sums, acc, CN, c * N, ln, S);
+      limb_planes::add_column<4, T>(sums, acc, CN, c * N + ob * bw, ln, S);
     }
     if (!last) {
       __syncthreads();  // plane C-1 is final and every column of step s is read
@@ -165,21 +182,22 @@ wide_pipe_kernel(const uint32_t* __restrict__ acc0, const uint32_t* __restrict__
     out[static_cast<size_t>(b0) * CN + idx] = acc[idx];
 }
 
-template <int T>
+template <int T, bool kBlocked>
 int launch(const void* acc0, const void* bk, const void* a_hat, void* out, const Shape& s,
            int* info, cudaStream_t stream) {
-  const int threads = 32 * (s.N / (16 * T));
+  const int threads = 32 * (block_width(s.N) / (16 * T));
   const size_t smem = smem_bytes(s);
   if (smem > static_cast<size_t>(whole_scan::smem_optin()))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      wide_pipe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      wide_pipe_kernel<T, kBlocked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = s.spc;
   info[1] = threads;
   info[2] = static_cast<int>(smem);
   info[3] = (s.B + s.spc - 1) / s.spc;
-  wide_pipe_kernel<T><<<info[3], threads, smem, stream>>>(
+  wide_pipe_kernel<T, kBlocked><<<info[3], threads, smem, stream>>>(
       static_cast<const uint32_t*>(acc0), static_cast<const uint32_t*>(bk),
       static_cast<const int32_t*>(a_hat), static_cast<uint32_t*>(out), s);
   return static_cast<int>(cudaGetLastError());
@@ -194,21 +212,23 @@ extern "C" {
 // with `spc` samples per CTA.  info (host, 4 ints) receives the plan:
 // samples per CTA, threads per CTA, dynamic shared memory bytes and CTAs.
 // Returns cudaErrorInvalidValue unless N is a power of two with 64 <= N <=
-// 512 (Kernel B's tiles), C >= 1, B >= 1, bk is 16-byte aligned, spc is 1,
+// kMaxDegree (Kernel B's tiles and blocks), C >= 1, B >= 1, bk is 16-byte
+// aligned, spc is 1,
 // 2, 4 or 8 and the shared memory fits the card's opt-in budget.
 int blind_rotate_fused_wide_pipe(const void* acc0, const void* bk, const void* a_hat,
                                  void* out, int n_steps, int B, int C, int N, int levels,
                                  int log_base, int ignored_bits, int balanced,
                                  unsigned int balanced_offset, int spc, int* info,
                                  void* stream) {
-  if (N < 64 || N > 512 || (N & (N - 1)) || C < 1 || B < 1 ||
+  if (N < 64 || N > kMaxDegree || (N & (N - 1)) || C < 1 || B < 1 ||
       reinterpret_cast<uintptr_t>(bk) % 16 || (spc != 1 && spc != 2 && spc != 4 && spc != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s{n_steps, B, C, N, levels, log_base, ignored_bits, balanced, balanced_offset,
                 4, spc};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return tiles_per_warp(N) == 4 ? launch<4>(acc0, bk, a_hat, out, s, info, st)
-                                : launch<2>(acc0, bk, a_hat, out, s, info, st);
+  if (N > kBlock) return launch<4, true>(acc0, bk, a_hat, out, s, info, st);
+  return tiles_per_warp(N) == 4 ? launch<4, false>(acc0, bk, a_hat, out, s, info, st)
+                                : launch<2, false>(acc0, bk, a_hat, out, s, info, st);
 }
 
 const char* tfhe_cuda_error_string(int err) {

@@ -20,7 +20,10 @@ All four compute the same step (``csrc/whole_scan.cuh``), so at one digit
 convention and key width they agree bit for bit; they differ in schedule
 only: all four share one int8 tensor-core contraction
 (``csrc/mma_row.cuh``: limb sums recombined mod 2^32) and take N a power of
-two from 64 to 512.
+two from 64 to 4096 (``MMA_DEGREES``).  Up to N=512 a key row's limb planes
+are staged whole; above it the circulant runs in 512 x 512 blocks, each
+from a window of the planes of 2*512 entries, so ``large_2048`` and
+``large_4096`` fit the shared memory with fewer samples per CTA.
 ``key_limbs=3`` drops the low byte of each sign-twisted key word, as the TPU
 kernels drop their lowest int8 limb plane: an approximate mode that spends
 part of the gate's noise margin (PERF.md measures how much at default_128).
@@ -29,8 +32,8 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain twin
 ``*_ref`` for CPU tensors; it raises for anything else.  On the card the
 samples per CTA are the largest of ``SAMPLES_PER_CTA`` whose shared memory
 fits the card's budget (``_build.smem_budget``); a shape that does not fit
-one sample, or an N outside 64..512, raises ``ValueError`` before anything
-is launched.  Unlike the
+one sample, an N outside ``MMA_DEGREES`` or limb sums that could pass int32
+raise ``ValueError`` before anything is launched.  Unlike the
 TPU kernels, whose batch lives in VMEM (2048 samples per call for
 ``fusedp``, 1536 for ``fusedw``), each kernel takes any batch in one launch.
 u32 values are int32 tensors (see ``ops/torus.py``).
@@ -68,10 +71,11 @@ WIDE_PIPE_KERNEL = CudaKernel("wide_pipe_kernel", "blind_rotate_fused_wide_pipe"
                               [_PTR] * 4 + [_INT] * 8 + [ctypes.c_uint, _INT, _INFO, _PTR])
 COLS_KERNEL = CudaKernel("cols_kernel", "blind_rotate_fused_cols",
                          [_PTR] * 4 + [_INT] * 9 + [_INFO, _PTR])
-#: the whole-scan kernels redesigned on Kernel B's contraction (mma_row.cuh),
-#: whose wrappers refuse any N but MMA_DEGREES before a launch
-MMA_KINDS = ("pipe", "wide_pipe", "cols")
-MMA_DEGREES = (64, 128, 256, 512)
+#: the degrees the four whole-scan kernels take (Kernel B's tensor-core
+#: tiles; blocks of BLOCK above BLOCK); their wrappers refuse any other N
+#: before a launch
+MMA_DEGREES = (64, 128, 256, 512, 1024, 2048, 4096)
+BLOCK = 512  # csrc/mma_row.cuh:kBlock
 #: the launch plan of each kernel's last launch, by C symbol: samples per
 #: CTA, threads per CTA, dynamic shared memory bytes, CTAs (and for Kernel G
 #: the clusters the card holds at once)
@@ -85,9 +89,10 @@ def smem_bytes(kind: str, params: TfheParams, spc: int) -> int:
     c, n, levels = params.glwe_dimension + 1, params.degree, params.pbs_decomposer.levels
     r = c * levels
     # one set of 16 byte-shifted limb-plane copies (limb_planes.cuh:copy_words)
-    # and one raw key row; B, F and G keep two of each; digit rows padded by
-    # 16 bytes (digit_row_bytes)
-    plane_set, raw_row = 4 * 16 * (n // 2 + 8), 4 * n
+    # of a row, or of a block's window above BLOCK, and one whole raw key
+    # row; B, F and G keep two of each; digit rows padded by 16 bytes
+    # (digit_row_bytes)
+    plane_set, raw_row = 4 * 16 * (min(n, BLOCK) // 2 + 8), 4 * n
     planes = 2 * plane_set + 2 * raw_row
     drow = n + 16
     if kind == "fused":
@@ -163,17 +168,22 @@ def _launch(kernel: CudaKernel, kind: str, params: TfheParams, acc0: torch.Tenso
     with arguments (pointers, shape, decomposer, *mode, spc, info, stream)."""
     device = acc0.device
     b, k1, n = acc0.shape
-    if kind in MMA_KINDS and n not in MMA_DEGREES:
-        raise ValueError(f"{kernel.symbol} takes N a power of two from 64 to 512 (Kernel B's "
-                         f"tensor-core tiles), got N={n}")
+    dp = params.pbs_decomposer
+    if n not in MMA_DEGREES:
+        raise ValueError(f"{kernel.symbol} takes N a power of two from 64 to 4096 (Kernel B's "
+                         f"tensor-core tiles and blocks), got N={n}")
+    # the limb sums of a column run over R*N digits of at most 2^log_base (the
+    # carry chain's +B) times limbs of at most 128, in int32
+    if k1 * dp.levels * n * (1 << dp.log_base) * 128 >= 1 << 31:
+        raise ValueError(f"{kernel.symbol}: R*N = {k1 * dp.levels * n} products of digits up to "
+                         f"{1 << dp.log_base} by limbs up to 128 could pass int32")
     if device.type != "cuda":
         raise ValueError(f"{kernel.symbol} runs on CPU or CUDA tensors, got {device}")
     steps = bk_u32.shape[0]
-    dp = params.pbs_decomposer
     check_cuda_operand("acc0", acc0, torch.int32, (b, k1, n), device)
     check_cuda_operand("bk_u32", bk_u32, torch.int32, (steps, k1 * dp.levels, k1, n), device)
     check_cuda_operand("a_hat", a_hat, torch.int32, (steps, b), device)
-    if kind in ("fused", *MMA_KINDS) and bk_u32.data_ptr() % 16:
+    if bk_u32.data_ptr() % 16:
         raise ValueError(f"bk_u32 must be 16-byte aligned ({kernel.symbol} copies it in 16-byte "
                          "pieces)")
     budget = smem_budget(device)

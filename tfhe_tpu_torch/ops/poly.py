@@ -170,12 +170,13 @@ def bk_to_matmul_w(bk_u32, key_limbs: int = NUM_LIMBS) -> torch.Tensor:
     return _toeplitz_to_w(sign_toeplitz_u32(bk_u32), key_limbs)
 
 
-def bk_to_matmul_w_cols(bk_u32, o_start, n_cols: int) -> torch.Tensor:
+def bk_to_matmul_w_cols(bk_u32, o_start, n_cols: int,
+                        key_limbs: int = NUM_LIMBS) -> torch.Tensor:
     """Column-sliced Toeplitz weights int8[R*N(m), C*4*n_cols(o)]: the local
     shard of ``bk_to_matmul_w`` for output coefficients [o_start,
     o_start+n_cols).  Needs the full key rows (every output coefficient
     touches every input coefficient of g)."""
-    return _toeplitz_to_w(sign_toeplitz_u32_cols(bk_u32, o_start, n_cols))
+    return _toeplitz_to_w(sign_toeplitz_u32_cols(bk_u32, o_start, n_cols), key_limbs)
 
 
 def _toeplitz_to_w(t, key_limbs: int = NUM_LIMBS) -> torch.Tensor:
@@ -188,15 +189,28 @@ def _toeplitz_to_w(t, key_limbs: int = NUM_LIMBS) -> torch.Tensor:
     return limbs.reshape(r * n, -1)
 
 
+#: output coefficients of the Toeplitz expansion ``ep_contract_matmul``
+#: builds at once above this degree
+EP_MATMUL_COLS = 256
+
+
 def ep_contract_matmul(digits_i8, bk_u32, key_limbs: int = NUM_LIMBS) -> torch.Tensor:
     """Exact external-product contraction: digits int8[B, R, N] x GGSW
     u32[R, C, N] -> int32[B, C*4, N] limb accumulators,
     out[b,(c,l),o] = sum_{r,m} digits[b,r,m] * limb_l(+-g[r,c,(o-m)%N])
     (limb 0 taken as 0 when ``key_limbs=3``).
 
-    The Toeplitz expansion is built per call and shared across the batch.
+    The Toeplitz expansion is built per call and shared across the batch;
+    above ``EP_MATMUL_COLS`` coefficients it is built that many output
+    coefficients at a time, which bounds its copies (whole, they take
+    ~8 GB at N=4096).
     """
-    return _contract_w(digits_i8, bk_to_matmul_w(bk_u32, key_limbs), bk_u32.shape[1])
+    n, c = bk_u32.shape[-1], bk_u32.shape[1]
+    if n <= EP_MATMUL_COLS:
+        return _contract_w(digits_i8, bk_to_matmul_w(bk_u32, key_limbs), c)
+    return torch.cat([_contract_w(digits_i8, bk_to_matmul_w_cols(bk_u32, o, EP_MATMUL_COLS,
+                                                                  key_limbs), c)
+                      for o in range(0, n, EP_MATMUL_COLS)], dim=-1)
 
 
 def ep_contract_matmul_cols(digits_i8, bk_u32, o_start, n_cols: int) -> torch.Tensor:
