@@ -1,0 +1,7 @@
+"""Host calls that waited on the card (pbs.card_waits) per addition, in the traced window."""
+
+from benchmark.benchlib.program_trace import counter_per_request
+
+
+def read(run):
+    return counter_per_request(run, "pbs.card_waits")

@@ -19,6 +19,7 @@ from tfhe_tpu_torch.ops import sampling
 from tfhe_tpu_torch.ops.torus import decode as t_decode
 from tfhe_tpu_torch.ops.torus import encode as t_encode
 from tfhe_tpu_torch.ops.torus import to_torch_u32, u32
+from tfhe_tpu_torch.utils.profiling import card_wait, scope
 
 # ---------------------------------------------------------------------------
 # client side
@@ -51,27 +52,41 @@ def decrypt(ck: ClientKey, cts) -> torch.Tensor:
 
 
 def _pbs_with_tv(sk: ServerKey, ct_in, tv_encoded, impl: str) -> torch.Tensor:
-    return mboot.pbs(sk.params, ct_in, sk, to_torch_u32(tv_encoded, sk.device), impl=impl)
+    """The PBS of one gate, inside its ``pbs.gate`` scope: the test vector
+    is made a tensor on the key's device in ``pbs.test_vector`` (a copy to
+    the card from pageable host memory waits until the card has drained),
+    then ``bootstrap.pbs`` runs."""
+    with scope("pbs.test_vector"):
+        tv = to_torch_u32(tv_encoded)
+        if sk.device.type != "cpu":
+            with card_wait("pbs"):
+                tv = tv.to(sk.device)
+    return mboot.pbs(sk.params, ct_in, sk, tv, impl=impl)
 
 
 def gate(sk: ServerKey, name: str, ct0, ct1, impl: str = "auto") -> torch.Tensor:
     """Named 2-input gate: ct_in = 2*ct1 + ct0, one PBS (src/boolean.rs:9-53)."""
-    ct_in = mlwe.add(mlwe.scalar_mul(ct1, 2), ct0)
-    return _pbs_with_tv(sk, ct_in, mtv.gate_test_vector(sk.params, name), impl)
+    with scope("pbs.gate", gate=name, impl=impl):
+        with scope("pbs.lincomb"):
+            ct_in = mlwe.add(mlwe.scalar_mul(ct1, 2), ct0)
+        return _pbs_with_tv(sk, ct_in, mtv.gate_test_vector(sk.params, name), impl)
 
 
 def apply_lut(sk: ServerKey, ct, lut, impl: str = "auto") -> torch.Tensor:
     """Generic programmable bootstrap: ct already encodes the LUT index
     (0..2^log_p); ``lut`` maps each index to an output cleartext."""
-    tv = mtv.lut_test_vector(sk.params, tuple(int(x) for x in lut))
-    return _pbs_with_tv(sk, ct, tv, impl)
+    with scope("pbs.gate", gate="lut", impl=impl):
+        tv = mtv.lut_test_vector(sk.params, tuple(int(x) for x in lut))
+        return _pbs_with_tv(sk, ct, tv, impl)
 
 
 def gate3(sk: ServerKey, name: str, ct2, ct1, ct0, impl: str = "auto") -> torch.Tensor:
     """Named 3-input gate: ct_in = 4*ct2 + 2*ct1 + ct0, one PBS
     (notes/Boolean Gates.md:7-11).  Requires a log_p>=3 parameter set."""
-    ct_in = mlwe.add(mlwe.add(mlwe.scalar_mul(ct2, 4), mlwe.scalar_mul(ct1, 2)), ct0)
-    return _pbs_with_tv(sk, ct_in, mtv.gate3_test_vector(sk.params, name), impl)
+    with scope("pbs.gate", gate=name, impl=impl):
+        with scope("pbs.lincomb"):
+            ct_in = mlwe.add(mlwe.add(mlwe.scalar_mul(ct2, 4), mlwe.scalar_mul(ct1, 2)), ct0)
+        return _pbs_with_tv(sk, ct_in, mtv.gate3_test_vector(sk.params, name), impl)
 
 
 def mux3(sk: ServerKey, sel, a, b, impl: str = "auto") -> torch.Tensor:
@@ -81,7 +96,8 @@ def mux3(sk: ServerKey, sel, a, b, impl: str = "auto") -> torch.Tensor:
 
 def bootstrap_identity(sk: ServerKey, ct, impl: str = "auto") -> torch.Tensor:
     """Noise-refreshing identity bootstrap (src/bootstrapping.rs tests)."""
-    return _pbs_with_tv(sk, ct, mtv.identity_test_vector(sk.params), impl)
+    with scope("pbs.gate", gate="identity", impl=impl):
+        return _pbs_with_tv(sk, ct, mtv.identity_test_vector(sk.params), impl)
 
 
 def not_(sk_or_params, ct) -> torch.Tensor:

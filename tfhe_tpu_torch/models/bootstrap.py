@@ -78,7 +78,7 @@ from tfhe_tpu_torch.ops.decomposer import decompose_signed_planes
 from tfhe_tpu_torch.ops.poly import ep_combine, ep_combine_planes, monomial_mul
 from tfhe_tpu_torch.ops.torus import switch_modulus, u32
 from tfhe_tpu_torch.params import TfheParams
-from tfhe_tpu_torch.utils.profiling import scope
+from tfhe_tpu_torch.utils.profiling import count, scope
 
 #: every backend string ``blind_rotate`` accepts: the JAX package's, in its
 #: order, less the ``*_interpret`` modes
@@ -310,10 +310,14 @@ def pbs(params: TfheParams, ct, server_key, tv_encoded, impl: str = "auto") -> t
 
     ct: u32[B, n+1]; server_key: models.keys.ServerKey; tv_encoded: u32[N].
     Each stage runs in a named scope (``utils/profiling.py:scope``), as in
-    the JAX package, so a captured trace shows it.
+    the JAX package, so a captured trace shows it; the call and its
+    ciphertexts are counted (``pbs.calls``, ``pbs.ciphertexts``).
     """
+    ct = u32(ct)
+    count("pbs.calls")
+    count("pbs.ciphertexts", ct.shape[0])
     with scope("pbs.mod_switch"):
-        approx = switch_modulus(u32(ct), params.log_q, params.log_degree + 1)
+        approx = switch_modulus(ct, params.log_q, params.log_degree + 1)
     with scope("pbs.blind_rotate"):
         acc = blind_rotate(params, approx, server_key, tv_encoded, impl=impl)
     with scope("pbs.sample_extract"):

@@ -25,6 +25,7 @@ from tfhe_tpu_torch.models import boolean as mbool
 from tfhe_tpu_torch.models.keys import ClientKey, ServerKey
 from tfhe_tpu_torch.ops.torus import encode as t_encode
 from tfhe_tpu_torch.ops.torus import shr, u32
+from tfhe_tpu_torch.utils.profiling import scope
 
 
 def encrypt_uint(ck: ClientKey, values, width: int,
@@ -76,59 +77,61 @@ def ripple_carry_add(sk: ServerKey, a_bits, b_bits, cin=None,
     a_bits/b_bits: u32[W, B, n+1] little-endian bit batches; ``cin``
     defaults to a trivial 0.  Returns (sum_bits u32[W, B, n+1], carry_out
     u32[B, n+1]).  Same-depth gates are batched into single wide PBS calls
-    (module docstring); the carry chain is the serial axis.
+    (module docstring); the carry chain is the serial axis.  The add runs in
+    a ``circuits.ripple_carry_add`` scope, the root span of its gates.
 
     ``trace`` (optional list) collects (label, depth, cts, clear_fn) tuples
     for per-depth noise metering: ``clear_fn(a_clear, b_clear, cin_clear)``
     returns the expected cleartexts for that stage's outputs.
     """
     w, batch = a_bits.shape[0], a_bits.shape[1]
-    p = sk.params
-    c = trivial_bit(p, (batch,), 0, a_bits.device) if cin is None else cin
+    with scope("circuits.ripple_carry_add", width=w, batch=batch, impl=impl):
+        p = sk.params
+        c = trivial_bit(p, (batch,), 0, a_bits.device) if cin is None else cin
 
-    def note(label, depth, cts, clear_fn):
-        if trace is not None:
-            trace.append((label, depth, cts, clear_fn))
+        def note(label, depth, cts, clear_fn):
+            if trace is not None:
+                trace.append((label, depth, cts, clear_fn))
 
-    def flat(x):
-        return x.reshape((w * batch,) + x.shape[2:])
+        def flat(x):
+            return x.reshape((w * batch,) + x.shape[2:])
 
-    def unflat(x):
-        return x.reshape((w, batch) + x.shape[1:])
+        def unflat(x):
+            return x.reshape((w, batch) + x.shape[1:])
 
-    if p.log_p >= 3:
-        # carry chain: c_{i+1} = maj(a_i, b_i, c_i), one PBS per bit
+        if p.log_p >= 3:
+            # carry chain: c_{i+1} = maj(a_i, b_i, c_i), one PBS per bit
+            carries = [c]
+            for i in range(w):
+                c = mbool.gate3(sk, "maj", a_bits[i], b_bits[i], c, impl=impl)
+                note(f"carry[{i}]", i + 1, c,
+                     lambda a, b, c0, i=i: _clear_carry(a, b, c0, i + 1))
+                carries.append(c)
+            # all W sums in one wide xor3 call at their respective depths
+            s = unflat(mbool.gate3(sk, "xor3", flat(a_bits), flat(b_bits),
+                                   flat(torch.stack(carries[:w])), impl=impl))
+            note("sums", w + 1, s,
+                 lambda a, b, c0: [_clear_sum(a, b, c0, i) for i in range(w)])
+            return s, carries[w]
+
+        # log_p == 2: wide XOR + AND over all bits at once, then the carry chain
+        x = unflat(mbool.gate(sk, "xor", flat(a_bits), flat(b_bits), impl=impl))
+        g = unflat(mbool.gate(sk, "and", flat(a_bits), flat(b_bits), impl=impl))
+        note("halves.x", 1, x, lambda a, b, c0: [
+            ((a >> i) ^ (b >> i)) & 1 for i in range(w)])
+        note("halves.g", 1, g, lambda a, b, c0: [
+            ((a >> i) & (b >> i)) & 1 for i in range(w)])
         carries = [c]
         for i in range(w):
-            c = mbool.gate3(sk, "maj", a_bits[i], b_bits[i], c, impl=impl)
-            note(f"carry[{i}]", i + 1, c,
+            h = mbool.gate(sk, "and", x[i], c, impl=impl)
+            c = mbool.gate(sk, "or", g[i], h, impl=impl)
+            note(f"carry[{i}]", i + 2, c,
                  lambda a, b, c0, i=i: _clear_carry(a, b, c0, i + 1))
             carries.append(c)
-        # all W sums in one wide xor3 call at their respective depths
-        s = unflat(mbool.gate3(sk, "xor3", flat(a_bits), flat(b_bits),
-                               flat(torch.stack(carries[:w])), impl=impl))
-        note("sums", w + 1, s,
+        s = unflat(mbool.gate(sk, "xor", flat(x), flat(torch.stack(carries[:w])), impl=impl))
+        note("sums", w + 2, s,
              lambda a, b, c0: [_clear_sum(a, b, c0, i) for i in range(w)])
         return s, carries[w]
-
-    # log_p == 2: wide XOR + AND over all bits at once, then the carry chain
-    x = unflat(mbool.gate(sk, "xor", flat(a_bits), flat(b_bits), impl=impl))
-    g = unflat(mbool.gate(sk, "and", flat(a_bits), flat(b_bits), impl=impl))
-    note("halves.x", 1, x, lambda a, b, c0: [
-        ((a >> i) ^ (b >> i)) & 1 for i in range(w)])
-    note("halves.g", 1, g, lambda a, b, c0: [
-        ((a >> i) & (b >> i)) & 1 for i in range(w)])
-    carries = [c]
-    for i in range(w):
-        h = mbool.gate(sk, "and", x[i], c, impl=impl)
-        c = mbool.gate(sk, "or", g[i], h, impl=impl)
-        note(f"carry[{i}]", i + 2, c,
-             lambda a, b, c0, i=i: _clear_carry(a, b, c0, i + 1))
-        carries.append(c)
-    s = unflat(mbool.gate(sk, "xor", flat(x), flat(torch.stack(carries[:w])), impl=impl))
-    note("sums", w + 2, s,
-         lambda a, b, c0: [_clear_sum(a, b, c0, i) for i in range(w)])
-    return s, carries[w]
 
 
 def _clear_carry(a, b, c0, i):

@@ -1,29 +1,175 @@
 """Profiling hooks (port of ``tfhe_tpu/utils/profiling.py``).
 
-Thin wrappers over ``torch.profiler``: named scopes around the hot stages
-(the four stages of ``models/bootstrap.py:pbs``), a one-shot trace capture
-that writes a Chrome trace, a stage timer that synchronises the card, and
-the measurement helpers the benches share: best-of-rounds timing with CUDA
-events, and the card's SM clock and power sampled by ``nvidia-smi``
-(a copy of ``scripts/measure_torch.py:sampled_clocks``).
+Wrappers over ``torch.profiler``: named scopes around the hot stages, the
+program's own span and counter recorder behind them, a one-shot trace
+capture that writes a Chrome trace, a stage timer that synchronises the
+card, and the measurement helpers the benches share: best-of-rounds timing
+with CUDA events, and the card's SM clock and power sampled by
+``nvidia-smi`` (a copy of ``scripts/measure_torch.py:sampled_clocks``).
+
+The recorder.  ``scope(name, **attrs)`` does nothing unless a torch profiler
+is running: it returns one shared no-op context after a single flag check,
+and ``count`` and ``card_wait`` return at once.  While a profiler runs,
+``scope`` opens a ``torch.profiler.record_function`` range of that name (so
+the span is in the profiler's trace) and keeps a ``Span`` in memory: its
+name, start and end, its id, its parent (the span open when it began), its
+request (the id of its root span) and its attributes.  Start and end are
+``time.time_ns()``, the Unix-epoch clock the profiler stamps host events
+with, so spans line up with the trace's kernels.  ``count(name, n)`` adds to
+a named counter; ``card_wait(prefix)`` wraps a host call that blocks on the
+card, counts it under ``<prefix>.card_waits`` and adds its seconds to every
+open span's ``wait_s``.  ``spans()``, ``counters()`` and ``reset()`` read
+and clear the store.
+
+The store holds one profiled stretch.  A caller starts one with ``reset()``;
+for a caller that cannot (the benchmark harness runs untraced requests and
+then a traced window, and reads the store after it), the first record made
+after a ``scope`` ran with no profiler also clears the spans and counters
+(the ``_stale`` flag), so each traced window of a process reads only its
+own.  At most ``MAX_SPANS`` spans are kept; the rest are counted under
+``spans_dropped``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import subprocess
+import threading
 import time
+from collections import defaultdict
 from datetime import datetime
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+#: the most spans the store keeps in one profiled stretch
+MAX_SPANS = 1 << 20
+#: the counter of spans left out of a full store
+SPANS_DROPPED = "spans_dropped"
 
 
-def scope(name: str):
-    """Named scope: a ``torch.profiler.record_function`` range, so the stage
-    shows up by name in a captured trace (used around the PBS stages in
-    models/bootstrap.py)."""
-    return torch.profiler.record_function(name)
+#: the shared context ``scope`` and ``card_wait`` return when no profiler runs
+NO_SCOPE = contextlib.nullcontext()
+
+
+class Span:
+    """One recorded scope: ``start_ns``/``end_ns`` on ``time.time_ns()``'s
+    clock (``end_ns`` is None while it is open), ``id``, ``parent`` (None for
+    a root), ``request`` (its root's id), ``attrs``, and the seconds of the
+    card waits inside it (``wait_s``)."""
+
+    __slots__ = ("name", "attrs", "id", "parent", "request", "start_ns", "end_ns", "wait_s",
+                 "_range")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+        self.end_ns = None
+        self.wait_s = 0.0
+
+    def __enter__(self):
+        _fresh_window()
+        stack = _open_spans()
+        parent = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = parent.id if parent is not None else None
+        self.request = parent.request if parent is not None else self.id
+        if len(_spans) < MAX_SPANS:
+            _spans.append(self)
+        else:
+            _counters[SPANS_DROPPED] += 1
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        _open_spans().pop()
+        self._range.__exit__(*exc)
+        self._range = None
+        return False
+
+
+_spans: list[Span] = []
+_counters: defaultdict = defaultdict(int)
+_ids = itertools.count(1)
+_local = threading.local()
+#: set by a ``scope`` that ran with no profiler: the next record starts afresh
+_stale = False
+
+
+def _open_spans() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def _fresh_window() -> None:
+    global _stale
+    if _stale:
+        _stale = False
+        reset()
+
+
+def scope(name: str, **attrs):
+    """Named scope: with a profiler running, a ``record_function`` range of
+    ``name`` and a recorded ``Span`` with ``attrs``; otherwise the shared
+    no-op ``NO_SCOPE``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        global _stale
+        _stale = True
+        return NO_SCOPE
+    return Span(name, attrs)
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name`` (only while a profiler runs)."""
+    if _autograd_profiler._is_profiler_enabled:
+        _fresh_window()
+        _counters[name] += n
+
+
+@contextlib.contextmanager
+def _timed_wait(prefix: str):
+    _fresh_window()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        seconds = time.perf_counter() - t0
+        _counters[prefix + ".card_waits"] += 1
+        for span in _open_spans():
+            span.wait_s += seconds
+
+
+def card_wait(prefix: str):
+    """Context around a host call that blocks until the card has drained:
+    while a profiler runs, it counts the call under ``<prefix>.card_waits``
+    and adds its seconds to each open span's ``wait_s``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return NO_SCOPE
+    return _timed_wait(prefix)
+
+
+def spans() -> list[Span]:
+    """The spans of the newest profiled stretch, in the order they began."""
+    return list(_spans)
+
+
+def counters() -> dict:
+    """The counters of the newest profiled stretch."""
+    return dict(_counters)
+
+
+def reset() -> None:
+    """Clear the spans and the counters."""
+    _spans.clear()
+    _counters.clear()
 
 
 @contextlib.contextmanager
