@@ -332,7 +332,7 @@ def phase2(epk, brk, get_params, to_torch_u32, params, sk, dev) -> None:
 
 #: Kernel C's cluster sizes held against its twin in phase 2 at N=512, those
 #: that fit the H100's shared memory, by variants
-LAT_CLUSTERS = {1: (16, 8, 4, 2, 1), 3: (16, 8, 4)}
+LAT_CLUSTERS = {1: (16, 8, 4, 2, 1), 3: (16, 8, 4, 2)}
 
 
 def phase2_latency(latk, get_params, to_torch_u32, params, sk, dev) -> None:
@@ -340,7 +340,10 @@ def phase2_latency(latk, get_params, to_torch_u32, params, sk, dev) -> None:
     random keys at nano and test_insecure, the worst case (every key byte
     -128, digits -8 and the +B anomaly 16) at nano, test_insecure and
     default_128, large_2048 and large_4096 (both forms) at 2 steps, every
-    cluster size forced at test_insecure (LAT_CLUSTERS), and a 16-step slice
+    cluster size forced at test_insecure (LAT_CLUSTERS), scans of 8 to 10
+    steps on random and worst-case keys under the plans with a 1-stage key
+    ring (large_4096 V=3 as picked, large_4096 V=1 and large_2048 V=3 at
+    clusters of 4, test_insecure V=3 at clusters of 2), and a 16-step slice
     of the default_128 latency key."""
     rng = np.random.default_rng(4)
     cases = [(name, v, b, None, "random", 0) for name in ("nano", "test_insecure")
@@ -352,6 +355,11 @@ def phase2_latency(latk, get_params, to_torch_u32, params, sk, dev) -> None:
         ("large_4096", 1, 2, 2, "random"), ("large_4096", 3, 1, 2, "random"))]
     cases += [("test_insecure", v, 2, 2, kind, cs) for v, sizes in LAT_CLUSTERS.items()
               for cs in sizes for kind in ("random", "worst")]
+    # scans of 8 to 10 steps, which reuse each of the kernel's three sums
+    # buffers, at the plans with a 1-stage key ring
+    cases += [(name, v, b, steps, kind, cs) for name, v, b, steps, cs in (
+        ("large_4096", 3, 1, 9, 0), ("large_4096", 1, 1, 8, 4), ("large_2048", 3, 2, 8, 4),
+        ("test_insecure", 3, 2, 10, 2)) for kind in ("random", "worst")]
     cases += [(params.name, 1, 8, "slice", "random", 0), (params.name, 3, 4, "slice", "random", 0)]
     for name, v, b, steps, kind, cluster in cases:
         p = get_params(name)

@@ -18,11 +18,10 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
     (``kernel_c_counted``), the SM clocks of each phase of its step
     (``kernel_c_phase_clocks``) and where its time goes (``CUTS_C``: copies
     with no contraction, the contraction alone, the mma loop alone, no key
-    loads, no DSMEM reads, no digit phase, no exchange of the digit words or
-    of the partial deltas, the step's frame alone, the key stream alone as
+    loads, no digit phase, no reduction of the partial deltas or copy of the
+    sums into the replicas, the step's frame alone, the key stream alone as
     it is and with every CTA taking in every key column, and 16 consumer
-    warps)
-    at [V=1, B=1], [V=1, B=8] and [V=3, B=4] (``kernel_c_report``);
+    warps) at [V=1, B=1], [V=1, B=8] and [V=3, B=4] (``kernel_c_report``);
   * the NTT key forms (``with_ntt_key``, ``with_ntt_lhs_key``): seconds and
     peak device memory;
   * Kernel D (``blind_rotate_nttf``) alone at B = 8 .. 2048, with its launch
@@ -227,38 +226,40 @@ _D_COUNTERS = (
             "  return static_cast<int>(err);\n"
             "}\n\n"))
 # Kernel C (csrc/latency_kernel.cu): its contraction (the mma loop; the key
-# stage still arrives and is released), its remote reads of acc (each CTA
-# reads its own slice instead), its digit phase, the two exchanges between
-# the CTAs of a cluster (the digit words, the partial deltas) and its key
-# stream (no copies, no waits for them), each cut from a copy of its
-# source; the key stream alone, as it is and with every CTA taking in all
-# of a step's key columns (as a CTA that contracts all of them must); and
-# 16 consumer warps in place of 8, which must give the same bits.
+# stage still arrives and is released), its digit phase, its two exchanges
+# between the CTAs of a cluster (the partial deltas reduced into each
+# owner's sums, stored locally instead; the sums copied into every replica)
+# and its key stream (no copies, no waits for them), each cut from a copy of
+# its source; the key
+# stream alone, as it is and with every CTA taking in all of a step's key
+# columns (as a CTA that contracts all of them must); and 16 consumer warps
+# in place of 8, or 16 or 4 n-tiles a warp, which must give the same bits.
 _C_NO_MMA = ("        for (int qa = q_lo; qa < q_hi;) {", "        for (int qa = q_lo; qa < q_lo;) {")
-_C_NO_REMOTE = ("        const uint32_t* slice = cluster.map_shared_rank(acc_mine, sn >> s.lgnj);",
-                "        const uint32_t* slice = acc_mine;")
-_C_NO_DIGITS = ("      for (int job = tid; job < s.V * items; job += kConsumers) {",
-                "      for (int job = tid; job < 0; job += kConsumers) {")
-_C_NO_DIGIT_EXCHANGE = (
-    ("      if (tid == 0)  // every CTA's block of this CTA's groups\n", "      if (false)\n"),
-    ("      if (tid < s.cs) {\n        const int glo = group_lo(s, tid)",
-     "      if (false) {\n        const int glo = group_lo(s, tid)"),
-    ("      mbar_wait_cluster(ext_ready, step & 1);\n", ""))
+_C_NO_DIGITS = (("  for (int base = tid; base < jobs; base += kIlp * kConsumers) {",
+                 "  for (int base = tid; base < 0; base += kIlp * kConsumers) {"),)
+_C_NO_ALL_GATHER = (
+    ("        if (tid == 0) mbar_expect(acc_ready, s.cs * items * 4);  // every slice\n",
+     "        if (false) mbar_expect(acc_ready, s.cs * items * 4);\n"),
+    ("        for (int job = tid; job < s.cs * chunks; job += kConsumers) {",
+     "        for (int job = tid; job < 0; job += kConsumers) {"),
+    ("      if (step > 0) mbar_wait_cluster(acc_ready, (step - 1) & 1);\n", ""))
 _C_NO_PARTIALS_EXCHANGE = (
-    ("      if (tid == 0) mbar_expect(delta_ready, s.cs * items * 4);  // every CTA's partials\n"
-     "      if (tid < s.cs) {\n", "      if (false) {\n"),
+    ("            red_async_add(cluster_addr(sums_s + c * nj + (j & (nj - 1)), o), sum + self,\n"
+     "                          cluster_addr(delta_ready, o));\n",
+     "            sums_s[c * nj + (j & (nj - 1))] = sum + self;\n"),
+    ("      if (tid == 0) mbar_expect(delta_ready, s.cs * s.ks * items * 4);",
+     "      if (false) mbar_expect(delta_ready, s.cs * s.ks * items * 4);"),
     ("      mbar_wait_cluster(delta_ready, step & 1);\n", ""))
-_C_NO_KEYS = (("      if (lane == 0) produce(", "      if (false) produce("),
+_C_NO_KEYS = (("    if (lane == 0) produce(", "    if (false) produce("),
               ("      mbar_wait(full + slot, (step / s.stages) & 1);\n", ""))
-_C_KEYS_ALONE = (_C_NO_DIGITS, *_C_NO_DIGIT_EXCHANGE, *_C_NO_PARTIALS_EXCHANGE, _C_NO_MMA)
-_C_MMA_ALONE = (_C_NO_DIGITS, *_C_NO_DIGIT_EXCHANGE, *_C_NO_PARTIALS_EXCHANGE, *_C_NO_KEYS)
+_C_KEYS_ALONE = (*_C_NO_DIGITS, *_C_NO_ALL_GATHER, *_C_NO_PARTIALS_EXCHANGE, _C_NO_MMA)
+_C_MMA_ALONE = (*_C_NO_DIGITS, *_C_NO_ALL_GATHER, *_C_NO_PARTIALS_EXCHANGE, *_C_NO_KEYS)
 CUTS_C = {"no contraction": (_C_NO_MMA,),
-          "contraction only": (_C_NO_DIGITS, *_C_NO_DIGIT_EXCHANGE, *_C_NO_PARTIALS_EXCHANGE),
+          "contraction only": (*_C_NO_DIGITS, *_C_NO_ALL_GATHER, *_C_NO_PARTIALS_EXCHANGE),
           "mma loop alone": _C_MMA_ALONE,
           "no key loads": _C_NO_KEYS,
-          "no DSMEM reads": (_C_NO_REMOTE,),
-          "no digit phase": (_C_NO_DIGITS,),
-          "no digit exchange": _C_NO_DIGIT_EXCHANGE,
+          "no digit phase": _C_NO_DIGITS,
+          "no slice all-gather": _C_NO_ALL_GATHER,
           "no partials exchange": _C_NO_PARTIALS_EXCHANGE,
           "step frame alone": (*_C_KEYS_ALONE, *_C_NO_KEYS),
           "key stream alone": _C_KEYS_ALONE,
@@ -272,29 +273,30 @@ CUTS_C = {"no contraction": (_C_NO_MMA,),
               "              load_a(next, q + u + 1 < qb ? q + u + 1 : q + u);\n", ""), (
               "              for (int r = 0; r < 4; ++r) a[r] = next[r];\n", "")),
           "mma loop alone, loads with no mma": (*_C_MMA_ALONE, (
-              "                limb_planes::mma_s8(acc[n], a, v[k], v[k + 1]);",
-              "                acc[n][0] ^= v[k] + v[k + 1] + a[n & 3];")),
+              "                limb_planes::mma_s8(acc_c[n], a, v[k], v[k + 1]);",
+              "                acc_c[n][0] ^= v[k] + v[k + 1] + a[n & 3];")),
           "16 consumer warps": (("constexpr int kWarps = 8;  // consumer warps",
                                  "constexpr int kWarps = 16;  // consumer warps"),),
           "16 n-tiles a warp": (
               ("constexpr int kMaxNtw = 8; ", "constexpr int kMaxNtw = 16;"),
               ("  s.ntw = tiles / kWarps;", "  s.ntw = 2 * tiles / kWarps;"),
-              ("  if (s.ntw == 8) return configure_t<8>(s, cfg, attr, active);",
-               "  if (s.ntw == 16) return configure_t<16>(s, cfg, attr, active);\n"
-               "  if (s.ntw == 8) return configure_t<8>(s, cfg, attr, active);"),
-              ("  if (s.ntw == 8) return args(latency_kernel<8>);",
-               "  if (s.ntw == 16) return args(latency_kernel<16>);\n"
-               "  if (s.ntw == 8) return args(latency_kernel<8>);")),
+              ("  if (s.ntw == 8) return latency_kernel<8>;",
+               "  if (s.ntw == 16) return latency_kernel<16>;\n"
+               "  if (s.ntw == 8) return latency_kernel<8>;")),
           "4 n-tiles a warp": (("  s.ntw = tiles / kWarps;", "  s.ntw = tiles / kWarps / 2;"),)}
 EXACT_CUTS_C = {"16 consumer warps", "16 n-tiles a warp", "4 n-tiles a warp"}
 #: Kernel C's cluster sizes timed beside the picked one; those a shape does
 #: not fit are refused and skipped
 CLUSTERS_C = (16, 8, 4, 2, 1)
 #: Kernel C with phase timers: thread 0 of CTA 0 sums clock64() over each
-#: phase of a step (PHASES_C, in order) and writes the sums over its first
-#: outputs, which are then wrong
-PHASES_C = ("wait for the slices", "digit phase", "digit exchange", "key wait", "mma loop",
-            "recombination", "partials exchange", "slice update")
+#: phase of a step (PHASES_C, in order: the wait for every slice of the
+#: step's accumulator, the digit phase, the consumers' barrier after it and
+#: zeroing the sums of two steps later, the wait for the key stage, the mma loop, the recombination and the
+#: reductions of the partials, the wait for every CTA's partials, the copy of
+#: the sums into every replica) and writes the sums over its
+#: first outputs, which are then wrong
+PHASES_C = ("wait for the slices", "digit phase", "digit barrier", "key wait", "mma loop",
+            "recombination", "partials exchange", "slice all-gather")
 _C_TIMERS = (
     _after("  const int b = blockIdx.x / s.cs;  // the cluster's sample\n",
            "  long long clocks[8] = {}, last = clock64();\n"
@@ -305,19 +307,16 @@ _C_TIMERS = (
            "      last = now;\n"
            "    }\n"
            "  };\n"),
-    _after("      cluster_wait();  // every slice holds the previous step's accumulator\n",
-           "      tick(0);\n"),
-    _before("      // this CTA's digit block into every CTA's ext, at the place of its\n",
-            "      tick(1);\n"),
+    _after("      if (step > 0) mbar_wait_cluster(acc_ready, (step - 1) & 1);\n", "      tick(0);\n"),
+    _after(", g_lo, r0, r1, ex, at, dig);\n", "      tick(1);\n"),
     _before("      // the contraction of this step's key stage\n", "      tick(2);\n"),
     _after("      const uint32_t* st = key_w + slot * stage_words;\n", "      tick(3);\n"),
     _before("        // rows (c, l) = 4c + l of one column sit on lanes 4 apart: recombine\n",
             "        tick(4);\n"),
-    _before("      // each CTA's partials into its `recv`, at this CTA's place\n",
-            "      tick(5);\n"),
+    _before("      // this also orders every CTA's reads of this step's replica", "      tick(5);\n"),
     _after("      mbar_wait_cluster(delta_ready, step & 1);\n", "      tick(6);\n"),
-    _after("        acc_mine[it] += d;\n      }\n", "      tick(7);\n"),
-    _after("    out[static_cast<size_t>(b) * CN + (c << s.lgN) + rank * nj + jl] = acc_mine[it];\n"
+    _after("                      cluster_addr(acc_ready, d));\n        }\n      }\n", "      tick(7);\n"),
+    _after("    out[static_cast<size_t>(b) * CN + (c << s.lgN) + rank * nj + jl] = result[it];\n"
            "  }\n",
            "  __syncthreads();\n"
            "  if (tid == 0 && blockIdx.x == 0)\n"
@@ -329,7 +328,7 @@ _C_TIMERS = (
 #: same tfhe_kernel_counts): the warp-wide m16n8k32 mma.sync it issues and
 #: the key bytes its copies read, summed over the launch
 _C_COUNTERS = (
-    _after("constexpr int kPlanInts = 7;\n", "__device__ unsigned long long g_counts[3];\n"),
+    _after("constexpr int kPlanInts = 8;\n", "__device__ unsigned long long g_counts[3];\n"),
     _before("#pragma unroll\n              for (int n = 0; n < NTW; ++n) {\n"
             "                const int k = (2 * n - 2 * u) & (2 * NTW - 1);",
             "              if (lane == 0) atomicAdd(&g_counts[0], 1ull * NTW);\n"),

@@ -24,7 +24,7 @@ from tfhe_tpu_torch.ops.cuda import ep_kernel as epk
 from tfhe_tpu_torch.ops.cuda import latency_kernel as latk
 from tfhe_tpu_torch.ops.cuda import ntt_kernel as nttk
 from tfhe_tpu_torch.ops.torus import to_torch_u32
-from tfhe_tpu_torch.params import get_params
+from tfhe_tpu_torch.params import DecomposerParams, get_params
 
 
 @pytest.fixture
@@ -553,7 +553,9 @@ def test_latency_kernel_refuses_unsupported_shapes_on_card(cuda_device):
     ("large_4096", 1, 1, 2, "random"), ("large_4096", 1, 2, 2, "worst"),
     ("large_4096", 3, 1, 2, "random"),
     # N=16: the warps split the k-chunks
-    ("nano_n16", 1, 3, None, "random"), ("nano_n16", 3, 2, None, "worst")])
+    ("nano_n16", 1, 3, None, "random"), ("nano_n16", 3, 2, None, "worst"),
+    # an odd number of levels: the digit phase stores row by row
+    ("test_insecure_l5", 1, 2, None, "random"), ("test_insecure_l5", 3, 2, None, "random")])
 def test_latency_kernel_matches_twin_at_every_shape_on_card(cuda_device, name, variants, batch,
                                                             steps, kind):
     """Kernel C against its twin, one launch each, under the plan it picks."""
@@ -564,20 +566,50 @@ def test_latency_kernel_matches_twin_at_every_shape_on_card(cuda_device, name, v
     torch.cuda.synchronize()
     assert latk.KERNEL.launches == before + 1
     assert latk.last_plan["ctas"] == batch * latk.last_plan["cluster"]
+    assert latk.last_plan["exchanges"] <= 2
     assert torch.equal(got, latk.blind_rotate_latency_ref(p, acc0, bk_lat, a_vhat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,variants,batch,cluster,steps,stages", [
+    # the plans with a 1-stage key ring: the picked one at large_4096 V=3,
+    # and clusters of 4 at the large degrees and of 2 at N=512 with V=3
+    ("large_4096", 3, 1, 0, 9, 1), ("large_4096", 1, 1, 4, 8, 1),
+    ("large_2048", 3, 2, 4, 8, 1), ("test_insecure", 3, 2, 2, 10, 1),
+    # a ring of 2 stages, and the 8-bit add's B=8 launch
+    ("large_2048", 3, 1, 8, 9, 2), ("default_128", 1, 8, 0, 10, 8)])
+def test_latency_kernel_matches_twin_over_long_scans_on_card(cuda_device, name, variants, batch,
+                                                             cluster, steps, stages):
+    """Kernel C against its twin over scans of 8 to 10 steps, which reuse
+    each of its three sums buffers at least twice and end in each of them,
+    on a random key and on the worst case (every key byte -128, digits -8
+    and +16); ``cluster`` 0 lets the entry point pick."""
+    p = latency_params(name)
+    for kind in ("random", "worst"):
+        acc0, bk_lat, a_vhat = latency_inputs(p, variants, batch, 200 + steps, steps, kind)
+        before = latk.KERNEL.launches
+        got = latk.blind_rotate_latency(p, acc0, bk_lat, a_vhat, cluster)
+        torch.cuda.synchronize()
+        assert latk.KERNEL.launches == before + 1
+        assert cluster in (0, latk.last_plan["cluster"])
+        assert latk.last_plan["stages"] == stages
+        assert torch.equal(got, latk.blind_rotate_latency_ref(p, acc0, bk_lat, a_vhat))
 
 
 #: Kernel C's cluster sizes at N=512 that fit the H100's shared memory, by
 #: variants
-LATENCY_CLUSTERS = {1: [16, 8, 4, 2, 1], 3: [16, 8, 4]}
+LATENCY_CLUSTERS = {1: [16, 8, 4, 2, 1], 3: [16, 8, 4, 2]}
 
 
 def latency_params(name):
     """A parameter set by name; ``nano_n16`` is nano at N=16, where a CTA's
     n-tiles fill fewer blocks than there are warps and the warps split the
-    k-chunks."""
+    k-chunks; ``test_insecure_l5`` is test_insecure with 5 levels of 4 bits."""
     if name == "nano_n16":
         return dataclasses.replace(get_params("nano"), log_degree=4, name=name)
+    if name == "test_insecure_l5":
+        return dataclasses.replace(get_params("test_insecure"), name=name,
+                                   pbs_decomposer=DecomposerParams(log_base=4, levels=5, log_q=32))
     return get_params(name)
 
 
@@ -603,7 +635,7 @@ def test_latency_kernel_matches_twin_under_every_plan_on_card(cuda_device, name,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,variants,cluster", [
-    ("test_insecure", 3, 2),   # the digit words and one key stage pass the shared memory
+    ("test_insecure", 3, 1),   # the digit words and one key stage pass the shared memory
     ("test_insecure", 1, 3)])  # not a cluster size
 def test_latency_kernel_refuses_plans_that_do_not_fit_on_card(cuda_device, name, variants,
                                                               cluster):

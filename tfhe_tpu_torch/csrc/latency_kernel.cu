@@ -47,33 +47,43 @@
 // added in uint32_t, where only the value mod 2^32 counts.
 //
 // Each sample runs on one cluster of `cs` CTAs.  CTA r owns the N/cs
-// coefficients i of every column for all steps, in shared memory
-// (acc_mine), and the r-th 1/cs of each step's key columns (its k-chunks),
-// which its producer warp streams through a ring of stages, one step's
-// share a stage, 4C bulk copies (one per row, rows padded to 4 mod 32 words
-// against bank conflicts) completing on the stage's mbarrier, a ring's
-// depth of steps ahead.  Per step, each CTA
-//   1. after a cluster barrier (every slice holds the previous step's
-//      accumulator), computes the digit words of its own coefficients of
-//      every variant and poly, reading rot's acc[p, i - a] from the CTA that
-//      holds it (distributed shared memory);
-//   2. sends every CTA of the cluster the digit groups that CTA's k-chunks
-//      touch, by bulk copies into the place of its coefficients in their
-//      `ext`, counted on the receiver's mbarrier ext_ready, which expects
-//      every CTA's share;
-//   3. contracts its k-chunks against the digit words for every output:
-//      the warps take blocks of NTW n-tiles (and, where there are fewer
-//      blocks than warps, split the k-chunks); a warp adds its
-//      limb rows (c, l) as sum_l out << 8l across the lanes that hold them
-//      (rows 4c+l of one column sit on lanes 4 apart) into a partial delta;
-//   4. sends each CTA the partial deltas of that CTA's coefficients, counted
-//      on its mbarrier delta_ready, which expects every CTA's partials: once
-//      it is complete, every CTA has also read this step's accumulator;
-//   5. adds the cluster's partials into its slice and arrives on the
-//      cluster barrier.  A CTA's ext and received partials are rewritten
-//      only after it has arrived, so after it has read them.
+// coefficients i = r*nj .. r*nj + nj - 1 of every column (its slice) and the
+// r-th 1/cs of each step's key columns (its k-chunks), which its producer
+// warp streams through a ring of stages, one step's share a stage, 4C bulk
+// copies (one per row, rows padded to 4 mod 32 words against bank
+// conflicts) completing on the stage's mbarrier, a ring's depth of steps
+// ahead.  Every CTA keeps the whole accumulator in shared memory (`acc`,
+// slice by slice: its replica).  Per step, each CTA
+//   1. waits on its mbarrier acc_ready until every owner's slice of this
+//      step's accumulator has arrived in its replica (step 4 of the last);
+//   2. makes, from its replica alone, the digit words of every coefficient
+//      for the groups its own k-chunks touch into `dig` [group][2N words]
+//      (offset m < N holds group g's digit bytes of coefficient m, N + m
+//      their negations): no reads of other CTAs' memory, no digit exchange;
+//   3. contracts its k-chunks for every output: the warps take blocks of NTW
+//      n-tiles (and, where there are fewer blocks than warps, split the
+//      k-chunks); a warp adds its limb rows (c, l) as sum_l out << 8l across
+//      the lanes that hold them (rows 4c+l of one column sit on lanes 4
+//      apart) into a partial delta, plus the CTA's own slice of this step's
+//      accumulator where the output is its own, and each lane adds its words
+//      into the owner's `sums` (its slice of the next accumulator, zeroed
+//      beforehand) by asynchronous remote reductions (red.async), counted on
+//      the owner's mbarrier delta_ready;
+//   4. once every CTA's partials have arrived, copies its `sums` into every
+//      replica, its own included, 16 bytes a thread at a time (st.async),
+//      counted on their acc_ready (not after the last step).
+// Two cluster-wide exchanges a step, the reduction and the all-gather, and
+// no cluster barrier.  No barrier guards the buffers either: an owner sends
+// its slice only after every CTA's partials of the step have reached it, and
+// each CTA sends those only after its digit phase and contraction have read
+// its replica and `dig`, so the slices of step s + 1 overwrite a replica
+// nobody reads any more, and a CTA whose replica is complete again has no
+// warp left reading `dig`.  `sums` rotates through three buffers by step: a
+// CTA zeroes the one of step s + 2 in step s, after a barrier its consumers
+// reach only once they have read it in step s - 1, and before the barrier
+// after which they send their slices of step s + 1, which every CTA must
+// have before it adds into it.
 
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -81,8 +91,6 @@
 #include <vector>
 
 #include "limb_planes.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -94,7 +102,9 @@ constexpr int kMaxStages = 8;
 constexpr int kMaxRows = 16;  // the (c, l) rows: one m16 tile, C <= 4
 constexpr int kClusterSizes[] = {16, 8, 4, 2, 1};
 constexpr int kBarConsumers = 1;  // named barrier (0 is __syncthreads)
-constexpr int kPlanInts = 7;
+constexpr int kIlp = 4;           // digit chains a consumer thread runs side by side
+constexpr int kPlanInts = 8;
+constexpr int kExchanges = 2;  // cluster-wide exchanges a step: the reduction, the all-gather
 
 struct Shape {
   int n_steps, B, V, C, N, levels, log_base, ignored_bits;
@@ -106,7 +116,7 @@ struct Shape {
   // stride, and the most digit groups one CTA's k-chunks touch
   int G, R4, nj, cpc, ntw, bpw, ks, lgN, lgnj, kw, kws, GD;
   // byte offsets of the shared-memory sections, and the total
-  int off_ext, off_sent, off_part, off_recv, off_key, off_bar, stage_bytes, smem;
+  int off_dig, off_sums, off_key, off_bar, stage_bytes, smem;
 };
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -158,7 +168,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       : "memory");
 }
 
-// the same, ordered after the bulk copies of other CTAs of the cluster
+// the same, ordered after the writes of other CTAs of the cluster counted on it
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
   asm volatile(
       "{\n"
@@ -172,15 +182,9 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
 }
 
 // this thread's generic-proxy shared-memory writes, made visible to the
-// async proxy (the bulk copies) after a barrier
+// async proxy after a barrier
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// this thread's bulk copies so far form a group; wait until every group's
-// source has been read
-__device__ __forceinline__ void bulk_commit_wait_read() {
-  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // `bytes` (a multiple of 16, both ends 16-byte aligned) global -> this
@@ -201,30 +205,125 @@ __device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
   return a;
 }
 
-// `bytes` (a multiple of 16, 16-byte aligned) of this CTA's shared memory
-// into another's (a shared::cluster address), counted on its mbarrier `bar`
-__device__ __forceinline__ void bulk_to_peer(uint32_t dst, const void* src, int bytes,
-                                             uint32_t bar) {
+// 16 bytes into another CTA's shared memory, counted on its mbarrier
+__device__ __forceinline__ void st_async_v4(uint32_t dst, uint4 w, uint32_t bar) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(dst),
-      "r"(limb_planes::smem_addr(src)), "r"(bytes), "r"(bar)
-      : "memory");
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n"
+      ::"r"(dst), "r"(w.x), "r"(w.y), "r"(w.z), "r"(w.w), "r"(bar) : "memory");
+}
+
+// a word added into another CTA's shared memory, counted on its mbarrier
+__device__ __forceinline__ void red_async_add(uint32_t dst, uint32_t v, uint32_t bar) {
+  asm volatile(
+      "red.async.relaxed.cluster.shared::cluster.mbarrier::complete_tx::bytes.add.u32 [%0], %1, [%2];\n"
+      ::"r"(dst), "r"(v), "r"(bar) : "memory");
 }
 
 // the first and last digit group that CTA r's k-chunks touch
-__device__ __forceinline__ int group_lo(const Shape& s, int r) { return r * s.cpc / (s.N / 8); }
-__device__ __forceinline__ int group_hi(const Shape& s, int r) {
+__host__ __device__ __forceinline__ int group_lo(const Shape& s, int r) {
+  return r * s.cpc / (s.N / 8);
+}
+__host__ __device__ __forceinline__ int group_hi(const Shape& s, int r) {
   return ((r + 1) * s.cpc - 1) / (s.N / 8);
 }
 
-// The producer (one thread): the key stages of steps `t` on, up to `limit`,
-// each into ring slot t mod stages once the consumers have released its
-// last use: this CTA's k-chunks of the step, one bulk copy per row.
+// The digit phase: for each poly f0 <= f < f0 + nf of the V*C (rows
+// v*R + p*levels .., f = v*C + p) and coefficient i < N, digit l of
+// (rot_v - acc)[p, i], rot_v[p, i] = acc[p, i - a_v], by round_value and the
+// reference carry chain (src/decomposer.rs:42-80), is the byte of row
+// (f+1)*levels - 1 - l; where that row lies in [r0, r1), it and its
+// negation go to byte row mod 4 of words [row/4 - g0][sign][i] of `dst`.
+// at(p, m) reads acc[p, m].
+// Each consumer thread runs kIlp chains side by side: a chain is a few
+// dozen dependent operations, so one at a time leaves the SM waiting.
+template <typename At>
+__device__ __forceinline__ void make_digits(const Shape& s, int tid, int f0, int nf, int g0,
+                                            int r0, int r1, int3 ex, At at, uint32_t* dst) {
+  const int N = s.N, L = s.levels, jobs = nf << s.lgN;
+  const int lb = s.log_base, ig = s.ignored_bits;
+  const uint32_t dmask = (1u << lb) - 1u;
+  const int half = 1 << (lb - 1);
+  // byte r mod 4 of word (r/4 - g0)*2N + i is byte r + (r/4)*(8N - 4) - 8*g0*N + 4i
+  const int stride = 8 * N - 4;
+  // with an even number of levels every poly's rows start even and [r0, r1)
+  // holds whole pairs of rows: they are stored a halfword at a time
+  const bool pairs = (L & 1) == 0;
+  unsigned char* bytes = reinterpret_cast<unsigned char*>(dst);
+  for (int base = tid; base < jobs; base += kIlp * kConsumers) {
+    uint32_t val[kIlp];
+    int carry[kIlp], top[kIlp], lo[kIlp], at_i[kIlp];
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      const int job = min(base + u * kConsumers, jobs - 1);
+      const int f = f0 + (job >> s.lgN), i = job & (N - 1);
+      const int v = (f >= s.C) + (f >= 2 * s.C), p = f - v * s.C;  // f < V*C <= 3C
+      const int src = (i - (v == 0 ? ex.x : v == 1 ? ex.y : ex.z)) & (2 * N - 1);
+      uint32_t rot = at(p, src & (N - 1));
+      if (src >= N) rot = 0u - rot;
+      const uint32_t diff = rot - at(p, i);
+      val[u] = ig ? (diff >> ig) + ((diff >> (ig - 1)) & 1u) : diff;
+      carry[u] = 0;
+      top[u] = (f + 1) * L - 1;  // the row of level 0
+      // the levels whose rows lie in [r0, r1) are lo .. lo + r1 - r0 - 1
+      lo[u] = base + u * kConsumers < jobs ? top[u] - r1 + 1 : 1 << 30;
+      at_i[u] = 4 * (i - 2 * g0 * N);
+    }
+    if (pairs) {
+      // two levels a pass: rows r (level l + 1) and r + 1 (level l) make one
+      // halfword, r even; r steps down by 2, so its byte offset o moves by 2
+      // within a word and by 2 + stride to the word before
+      int o[kIlp];
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u) {
+        const int r = top[u] - 1;
+        o[u] = r + (r >> 2) * stride + at_i[u];
+      }
+      for (int l = 0; l < L; l += 2) {
+#pragma unroll
+        for (int u = 0; u < kIlp; ++u) {
+          const bool in_word = ((top[u] - 1 - l) & 2) != 0;
+          int hi = static_cast<int>((val[u] >> (lb * l)) & dmask) + carry[u];
+          int cm = hi & half;
+          hi -= cm << 1;  // in [-B/2, B]: the +B anomaly stays
+          int c1 = cm >> (lb - 1);
+          int lw = static_cast<int>((val[u] >> (lb * (l + 1))) & dmask) + c1;
+          cm = lw & half;
+          lw -= cm << 1;
+          carry[u] = cm >> (lb - 1);
+          if (static_cast<unsigned>(l + 1 - lo[u]) < static_cast<unsigned>(r1 - r0)) {
+            *reinterpret_cast<uint16_t*>(bytes + o[u]) = __byte_perm(lw, hi, 0x0040);
+            *reinterpret_cast<uint16_t*>(bytes + o[u] + 4 * N) = __byte_perm(-lw, -hi, 0x0040);
+          }
+          o[u] -= in_word ? 2 : 2 + stride;
+        }
+      }
+    } else {
+      for (int l = 0; l < L; ++l) {
+#pragma unroll
+        for (int u = 0; u < kIlp; ++u) {
+          int res = static_cast<int>((val[u] >> (lb * l)) & dmask) + carry[u];
+          const int cm = res & half;
+          res -= cm << 1;  // in [-B/2, B]: the +B anomaly stays
+          carry[u] = cm >> (lb - 1);
+          const bool in = static_cast<unsigned>(l - lo[u]) < static_cast<unsigned>(r1 - r0);
+          const int r = top[u] - l, o = r + (r >> 2) * stride + at_i[u];
+          if (in) {
+            bytes[o] = static_cast<unsigned char>(res);
+            bytes[o + 4 * N] = static_cast<unsigned char>(-res);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The producer (one thread): the key stage of every step t, each into ring
+// slot t mod stages once the consumers have released its last use: this
+// CTA's k-chunks of the step, one bulk copy per row.
 __device__ void produce(const Shape& s, const int8_t* __restrict__ bk, int8_t* keys,
-                        uint64_t* full, uint64_t* empty, int rank, int& t, int limit) {
+                        uint64_t* full, uint64_t* empty, int rank) {
   const size_t row_bytes = static_cast<size_t>(s.G) * s.N * 4;
-  for (; t < limit; ++t) {
+  for (int t = 0; t < s.n_steps; ++t) {
     const int slot = t % s.stages, use = t / s.stages;
     if (use > 0) mbar_wait(empty + slot, (use - 1) & 1);
     const int8_t* src = bk + static_cast<size_t>(t) * s.R4 * row_bytes + rank * s.kw * 4;
@@ -240,113 +339,78 @@ __global__ void __launch_bounds__(kThreads, 1)
 latency_kernel(const uint32_t* __restrict__ acc0, const int8_t* __restrict__ bk,
                const int32_t* __restrict__ a_vhat, uint32_t* __restrict__ out, Shape s) {
   extern __shared__ __align__(128) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
   const int N = s.N, C = s.C, nj = s.nj, mask2 = 2 * N - 1;
-  const int CN = C * N, items = C * nj;  // items: this CTA's (column, i)
-  const int gnj = s.G * nj;              // words of one sign of a CTA's digit block
-  const int gdnj = s.GD * nj;            // words of one sign of a CTA's block received
-  uint32_t* acc_mine = reinterpret_cast<uint32_t*>(smem);           // [C][nj]
-  uint32_t* ext = reinterpret_cast<uint32_t*>(smem + s.off_ext);    // [2][cs][GD][nj]
-  uint32_t* sent = reinterpret_cast<uint32_t*>(smem + s.off_sent);  // [2][G][nj]
-  uint32_t* part = reinterpret_cast<uint32_t*>(smem + s.off_part);  // [ks][cs][C][nj]
-  uint32_t* recv = reinterpret_cast<uint32_t*>(smem + s.off_recv);  // [cs][C][nj]
+  const int CN = C * N, items = C * nj;  // items: a slice's (column, i)
+  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);                // [cs][C][nj]
+  uint32_t* dig = reinterpret_cast<uint32_t*>(smem + s.off_dig);    // [GD][2N]
+  uint32_t* sums = reinterpret_cast<uint32_t*>(smem + s.off_sums);  // [3][C][nj]
   int8_t* keys = reinterpret_cast<int8_t*>(smem + s.off_key);       // [stages][R4][kws]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + s.off_bar);   // [stages] each
   uint64_t* empty = full + s.stages;
-  uint64_t* ext_ready = empty + s.stages;  // every CTA's digit block has arrived
-  uint64_t* delta_ready = ext_ready + 1;   // every CTA's partials of this slice have
+  uint64_t* acc_ready = empty + s.stages;  // every slice of the step's accumulator has
+  uint64_t* delta_ready = acc_ready + 1;   // every CTA's partials of `sums` have
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rank = cluster_rank();
   const int b = blockIdx.x / s.cs;  // the cluster's sample
+  uint32_t* own = acc + rank * items;
 
   if (tid == 0) {
     for (int k = 0; k < s.stages; ++k) {
       mbar_init(full + k, 1);
       mbar_init(empty + k, kWarps);
     }
-    mbar_init(ext_ready, 1);
+    mbar_init(acc_ready, 1);
     mbar_init(delta_ready, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int it = tid; it < items; it += kThreads) {
-    const int c = it >> s.lgnj, jl = it & (nj - 1);
-    acc_mine[it] = acc0[static_cast<size_t>(b) * CN + (c << s.lgN) + rank * nj + jl];
+  // `sums` starts at 0, and so do the digit bytes of rows past V*R, never written
+  for (int it = tid; it < (s.off_key - s.off_dig) / 4; it += kThreads) dig[it] = 0u;
+  for (int it = tid; it < CN; it += kThreads) {
+    const int o = it / items, r = it - o * items, c = r >> s.lgnj, jl = r & (nj - 1);
+    acc[it] = acc0[static_cast<size_t>(b) * CN + (c << s.lgN) + o * nj + jl];
   }
-  for (int idx = tid; idx < 2 * gnj; idx += kThreads) sent[idx] = 0u;  // padding rows stay 0
+  fence_proxy_async();
   __syncthreads();
-
   cluster_arrive();
+  cluster_wait();  // every CTA's mbarriers and `sums` are ready
+
   if (warp == kWarps) {
-    // the producer warp: lane 0 streams the key, a ring's depth of steps
-    // ahead; the warp keeps the cluster barrier's order
-    int t = 0;
-    for (int step = 0; step < s.n_steps; ++step) {
-      cluster_wait();
-      const int limit = min(s.n_steps, step + 1 + s.stages);
-      if (lane == 0) produce(s, bk, keys, full, empty, rank, t, limit);
-      __syncwarp();
-      cluster_arrive();
-    }
+    // the producer warp: lane 0 streams the key, a ring's depth of steps ahead
+    if (lane == 0) produce(s, bk, keys, full, empty, rank);
   } else {
-    const int R = C * s.levels, lb = s.log_base, ig = s.ignored_bits;
-    const uint32_t dmask = (1u << lb) - 1u;
-    const int half = 1 << (lb - 1);
-    unsigned char* sent_b = reinterpret_cast<unsigned char*>(sent);
     const int gid = lane >> 2, tig = lane & 3;
     const int cpg = N >> 3;  // k-chunks per digit group
     // this warp's k-split and its k-chunks of the CTA's share
     const int kq = warp % s.ks, q_lo = kq * s.cpc / s.ks, q_hi = (kq + 1) * s.cpc / s.ks;
     const int q0 = rank * s.cpc;  // the CTA's first k-chunk of a step
-    const int g_lo = group_lo(s, rank);
+    const int g_lo = group_lo(s, rank), gn = group_hi(s, rank) - g_lo + 1;
     const bool row_lo = gid < s.R4, row_hi = gid + 8 < s.R4;
     const int a_lo = gid * s.kws + tig, a_hi = (gid + 8) * s.kws + tig;
     const uint32_t* key_w = reinterpret_cast<const uint32_t*>(keys);
     const int stage_words = s.stage_bytes / 4;
-    const int pitems = s.cs * items;  // words of one k-split's partials
+    // the digit rows of this CTA's groups, [r0, r1), and their first poly
+    const int r0 = 4 * g_lo, r1 = min(4 * (g_lo + gn), s.V * C * s.levels), f0 = r0 / s.levels;
+    const auto at = [&](int p, int m) {  // acc[p, m] in the replica
+      return acc[(m >> s.lgnj) * items + p * nj + (m & (nj - 1))];
+    };
 
     for (int step = 0; step < s.n_steps; ++step) {
-      cluster_wait();  // every slice holds the previous step's accumulator
-      // the digits of this CTA's coefficients i of every variant and poly,
-      // four rows packed per word: rot reads acc[p, i - a] from the CTA that
-      // holds it
-      for (int job = tid; job < s.V * items; job += kConsumers) {
-        const int jl = job & (nj - 1), rest = job >> s.lgnj, p = rest % C, v = rest / C;
-        const int a = a_vhat[(static_cast<size_t>(step) * s.V + v) * s.B + b] & mask2;
-        const int src = (rank * nj + jl - a) & mask2, sn = src & (N - 1);
-        const uint32_t* slice = cluster.map_shared_rank(acc_mine, sn >> s.lgnj);
-        uint32_t rot = slice[p * nj + (sn & (nj - 1))];
-        if (src >= N) rot = 0u - rot;
-        const uint32_t diff = rot - acc_mine[p * nj + jl];
-        // round_value, then the reference carry chain (src/decomposer.rs:42-80)
-        const uint32_t val = ig ? (diff >> ig) + ((diff >> (ig - 1)) & 1u) : diff;
-        int carry = 0;
-        for (int l = 0; l < s.levels; ++l) {
-          int res = static_cast<int>((val >> (lb * l)) & dmask) + carry;
-          const int cm = res & half;
-          res -= cm << 1;  // in [-B/2, B]: the +B anomaly stays
-          carry = cm >> (lb - 1);
-          const int row = v * R + p * s.levels + s.levels - 1 - l;
-          const int off = ((row >> 2) * nj + jl) * 4 + (row & 3);
-          sent_b[off] = static_cast<unsigned char>(res);
-          sent_b[off + 4 * gnj] = static_cast<unsigned char>(-res);
-        }
-      }
-      // this CTA's digit block into every CTA's ext, at the place of its
-      // coefficients: thread d sends CTA d the groups its k-chunks touch,
-      // sign by sign
-      fence_proxy_async();
+      uint32_t* sums_s = sums + step % 3 * items;  // this step's sums: the next slice
+      // every slice of this step's accumulator has arrived
+      if (step > 0) mbar_wait_cluster(acc_ready, (step - 1) & 1);
+      // the step's exponents a_v mod 2N, then the digit words of every
+      // coefficient of this CTA's groups
+      const int32_t* av = a_vhat + static_cast<size_t>(step) * s.V * s.B + b;
+      const int3 ex = make_int3(av[0] & mask2, s.V > 1 ? av[s.B] & mask2 : 0,
+                                s.V > 2 ? av[2 * s.B] & mask2 : 0);
+      make_digits(s, tid, f0, (r1 - 1) / s.levels - f0 + 1, g_lo, r0, r1, ex, at, dig);
       bar_consumers();
-      if (tid == 0)  // every CTA's block of this CTA's groups
-        mbar_expect(ext_ready, 2 * s.cs * (group_hi(s, rank) - group_lo(s, rank) + 1) * nj * 4);
-      if (tid < s.cs) {
-        const int glo = group_lo(s, tid), words = (group_hi(s, tid) - glo + 1) * nj;
-        for (int sign = 0; sign < 2; ++sign)
-          bulk_to_peer(cluster_addr(ext + (sign * s.cs + rank) * gdnj, tid),
-                       sent + (sign * s.G + glo) * nj, words * 4, cluster_addr(ext_ready, tid));
-        bulk_commit_wait_read();
-      }
-      mbar_wait_cluster(ext_ready, step & 1);
+      // the sums of step + 2 start at 0: every consumer has passed the
+      // barrier, so has read them last step, and no CTA adds into them before
+      // the slices of step + 1 reach it, sent after the next such barrier
+      for (int it = tid; it < items; it += kConsumers) sums[(step + 2) % 3 * items + it] = 0u;
+      fence_proxy_async();
 
       // the contraction of this step's key stage
       const int slot = step % s.stages;
@@ -356,11 +420,11 @@ latency_kernel(const uint32_t* __restrict__ acc0, const int8_t* __restrict__ bk,
         // n-tile block `blk`: outputs j0 .. j0 + 8*NTW - 1
         const int blk = warp / s.ks + k * (kWarps / s.ks), j0 = blk * NTW * 8;
         const int jd = j0 + gid - tig;
-        int acc[NTW][4];
+        int acc_c[NTW][4];
 #pragma unroll
         for (int n = 0; n < NTW; ++n)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) acc[n][r] = 0;
+          for (int r = 0; r < 4; ++r) acc_c[n][r] = 0;
         // the A registers of the CTA's k-chunk q
         const auto load_a = [&](uint32_t(&a)[4], int q) {
           const int lc = 8 * q;
@@ -374,13 +438,9 @@ latency_kernel(const uint32_t* __restrict__ acc0, const int8_t* __restrict__ bk,
         for (int qa = q_lo; qa < q_hi;) {
           const int g = (q0 + qa) / cpg, qb = min(q_hi, (g + 1) * cpg - q0);
           const int t0a = (q0 + qa - g * cpg) * 8;
-          // the digit word of offset m of group g:
-          // ext[m / N][m / nj mod cs][g - group_lo(rank)][m mod nj]
-          const uint32_t* e = ext + (g - g_lo) * nj;
-          const auto word = [&](int m) {
-            m &= mask2;
-            return e[(m >> s.lgnj) * gdnj + (m & (nj - 1))];
-          };
+          // the digit word of offset m of group g
+          const uint32_t* e = dig + (g - g_lo) * 2 * N;
+          const auto word = [&](int m) { return e[m & mask2]; };
           // the window of k-chunk t0: win(m) = digit word of offset
           // j0 - t0 - 4 + 4m, m < 2*NTW; b0 of n-tile n is win(2n+1), b1
           // win(2n), held as the pair v[2n], v[2n+1].  The next k-chunk's
@@ -404,7 +464,7 @@ latency_kernel(const uint32_t* __restrict__ acc0, const int8_t* __restrict__ bk,
 #pragma unroll
               for (int n = 0; n < NTW; ++n) {
                 const int k = (2 * n - 2 * u) & (2 * NTW - 1);
-                limb_planes::mma_s8(acc[n], a, v[k], v[k + 1]);
+                limb_planes::mma_s8(acc_c[n], a, v[k], v[k + 1]);
               }
               const int t0 = t0a + 8 * (q - qa + u + 1), k = (-2 * u - 2) & (2 * NTW - 1);
               v[k] = word(jd - t0);
@@ -416,7 +476,7 @@ latency_kernel(const uint32_t* __restrict__ acc0, const int8_t* __restrict__ bk,
           for (; q < qb; ++q) {  // the last k-chunks of the segment, fewer than NTW
             load_a(next, q + 1 < qb ? q + 1 : q);
 #pragma unroll
-            for (int n = 0; n < NTW; ++n) limb_planes::mma_s8(acc[n], a, v[2 * n], v[2 * n + 1]);
+            for (int n = 0; n < NTW; ++n) limb_planes::mma_s8(acc_c[n], a, v[2 * n], v[2 * n + 1]);
             const int t0 = t0a + 8 * (q - qa + 1);
 #pragma unroll
             for (int m = 2 * NTW - 1; m >= 2; --m) v[m] = v[m - 2];
@@ -429,14 +489,15 @@ latency_kernel(const uint32_t* __restrict__ acc0, const int8_t* __restrict__ bk,
         }
         // rows (c, l) = 4c + l of one column sit on lanes 4 apart: recombine
         // sum_l out << 8l there (all shuffles first, none diverging), then
-        // the lanes of limb l store the sums of their c_l register: rows gid
-        // (c0, c1) and gid+8 (c2, c3) are columns gid/4 and 2 + gid/4, and
-        // output j goes to the partials of its owner
+        // the lanes of limb l add the sums of their c_l register into the
+        // owner's sums: rows gid (c0, c1) and gid+8 (c2, c3) are columns gid/4
+        // and 2 + gid/4
         uint32_t x[NTW][4];
 #pragma unroll
         for (int n = 0; n < NTW; ++n)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) x[n][r] = static_cast<uint32_t>(acc[n][r]) << (8 * (gid & 3));
+          for (int r = 0; r < 4; ++r)
+            x[n][r] = static_cast<uint32_t>(acc_c[n][r]) << (8 * (gid & 3));
 #pragma unroll
         for (int n = 0; n < NTW; ++n)
 #pragma unroll
@@ -447,48 +508,40 @@ latency_kernel(const uint32_t* __restrict__ acc0, const int8_t* __restrict__ bk,
           for (int r = 0; r < 4; ++r) x[n][r] += __shfl_xor_sync(0xFFFFFFFFu, x[n][r], 8);
         const int l = gid & 3, c = 2 * (l >> 1) + (gid >> 2);
         if (c < C) {
-          uint32_t* pq = part + kq * pitems + c * nj;
 #pragma unroll
           for (int n = 0; n < NTW; ++n) {
-            const int j = j0 + 8 * n + 2 * tig + (l & 1);
+            const int j = j0 + 8 * n + 2 * tig + (l & 1), o = j >> s.lgnj;
             const uint32_t sum = l == 0 ? x[n][0] : l == 1 ? x[n][1] : l == 2 ? x[n][2] : x[n][3];
-            pq[(j >> s.lgnj) * items + (j & (nj - 1))] = sum;
+            // the CTA's own slice of the accumulator rides with its partials
+            const uint32_t self = o == rank && kq == 0 ? own[c * nj + (j & (nj - 1))] : 0u;
+            red_async_add(cluster_addr(sums_s + c * nj + (j & (nj - 1)), o), sum + self,
+                          cluster_addr(delta_ready, o));
           }
         }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + slot);
-      if (s.ks > 1) {  // the k-splits' partials, summed
-        bar_consumers();
-        for (int it = tid; it < pitems; it += kConsumers) {
-          uint32_t d = 0u;
-          for (int q = 0; q < s.ks; ++q) d += part[q * pitems + it];
-          part[it] = d;
+      if (tid == 0) mbar_expect(delta_ready, s.cs * s.ks * items * 4);  // every k-split's partials
+      // this also orders every CTA's reads of this step's replica before the
+      // slices of the next overwrite it
+      mbar_wait_cluster(delta_ready, step & 1);
+      if (step + 1 < s.n_steps) {  // the slice of the next accumulator into every replica
+        if (tid == 0) mbar_expect(acc_ready, s.cs * items * 4);  // every slice
+        const int chunks = items / 4;  // of 16 bytes
+        for (int job = tid; job < s.cs * chunks; job += kConsumers) {
+          const int d = job / chunks, k = job - d * chunks;
+          st_async_v4(cluster_addr(own + 4 * k, d), reinterpret_cast<const uint4*>(sums_s)[k],
+                      cluster_addr(acc_ready, d));
         }
       }
-      // each CTA's partials into its `recv`, at this CTA's place
-      fence_proxy_async();
-      bar_consumers();
-      if (tid == 0) mbar_expect(delta_ready, s.cs * items * 4);  // every CTA's partials
-      if (tid < s.cs) {
-        bulk_to_peer(cluster_addr(recv + rank * items, tid), part + tid * items, items * 4,
-                     cluster_addr(delta_ready, tid));
-        bulk_commit_wait_read();
-      }
-      // this also orders every CTA's reads of this slice before its update
-      mbar_wait_cluster(delta_ready, step & 1);
-      for (int it = tid; it < items; it += kConsumers) {
-        uint32_t d = 0u;
-        for (int o = 0; o < s.cs; ++o) d += recv[o * items + it];
-        acc_mine[it] += d;
-      }
-      cluster_arrive();
     }
   }
+  cluster_arrive();
   cluster_wait();
+  const uint32_t* result = s.n_steps ? sums + (s.n_steps - 1) % 3 * items : own;
   for (int it = tid; it < items; it += kThreads) {
     const int c = it >> s.lgnj, jl = it & (nj - 1);
-    out[static_cast<size_t>(b) * CN + (c << s.lgN) + rank * nj + jl] = acc_mine[it];
+    out[static_cast<size_t>(b) * CN + (c << s.lgN) + rank * nj + jl] = result[it];
   }
 }
 
@@ -517,23 +570,19 @@ bool derive(Shape& s) {
   s.kws = s.kw + 4;  // rows 4 banks apart: a warp's A loads hit 32 banks
   s.GD = 0;
   for (int r = 0; r < s.cs; ++r) {
-    const int groups = ((r + 1) * s.cpc - 1) / (s.N / 8) - r * s.cpc / (s.N / 8) + 1;
+    const int groups = group_hi(s, r) - group_lo(s, r) + 1;
     s.GD = groups > s.GD ? groups : s.GD;
   }
   return true;
 }
 
 int layout(Shape& s) {
-  const int items = s.C * s.nj, gnj = s.G * s.nj;
-  int off = align_up(items * 4, 128);  // acc_mine
-  s.off_ext = off;
-  off += align_up(2 * s.cs * s.GD * s.nj * 4, 128);
-  s.off_sent = off;
-  off += align_up(2 * gnj * 4, 128);
-  s.off_part = off;
-  off += align_up(s.ks * s.cs * items * 4, 128);
-  s.off_recv = off;
-  off += align_up(s.cs * items * 4, 128);
+  const int items = s.C * s.nj;
+  int off = align_up(s.C * s.N * 4, 128);  // acc
+  s.off_dig = off;
+  off += align_up(s.GD * 2 * s.N * 4, 128);
+  s.off_sums = off;
+  off += align_up(3 * items * 4, 128);
   s.stage_bytes = align_up(s.R4 * s.kws * 4, 128);
   s.off_key = off;
   off += s.stages * s.stage_bytes;
@@ -550,14 +599,22 @@ bool fit_stages(Shape& s, int budget) {
   return false;
 }
 
-template <int NTW>
-cudaError_t configure_t(const Shape& s, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
-                        int* active) {
-  cudaError_t err = cudaFuncSetAttribute(latency_kernel<NTW>,
-                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+using KernelFn = void (*)(const uint32_t*, const int8_t*, const int32_t*, uint32_t*, Shape);
+
+// the kernel instance of a plan: its n-tiles per warp
+KernelFn kernel_for(const Shape& s) {
+  if (s.ntw == 8) return latency_kernel<8>;
+  if (s.ntw == 4) return latency_kernel<4>;
+  if (s.ntw == 2) return latency_kernel<2>;
+  return latency_kernel<1>;
+}
+
+cudaError_t configure(const Shape& s, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                      int* active) {
+  const KernelFn kernel = kernel_for(s);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(latency_kernel<NTW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               s.smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem);
   if (err != cudaSuccess) return err;
   cfg = {};
   cfg.gridDim = dim3(s.B * s.cs);
@@ -569,28 +626,7 @@ cudaError_t configure_t(const Shape& s, cudaLaunchConfig_t& cfg, cudaLaunchAttri
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return active ? cudaOccupancyMaxActiveClusters(active, latency_kernel<NTW>, &cfg) : cudaSuccess;
-}
-
-cudaError_t configure(const Shape& s, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
-                      int* active) {
-  if (s.ntw == 8) return configure_t<8>(s, cfg, attr, active);
-  if (s.ntw == 4) return configure_t<4>(s, cfg, attr, active);
-  if (s.ntw == 2) return configure_t<2>(s, cfg, attr, active);
-  return configure_t<1>(s, cfg, attr, active);
-}
-
-cudaError_t launch(const Shape& s, cudaLaunchConfig_t& cfg, const void* acc0, const void* bk,
-                   const void* a_vhat, void* out) {
-  const auto args = [&](auto kernel) {
-    return cudaLaunchKernelEx(&cfg, kernel, static_cast<const uint32_t*>(acc0),
-                              static_cast<const int8_t*>(bk), static_cast<const int32_t*>(a_vhat),
-                              static_cast<uint32_t*>(out), s);
-  };
-  if (s.ntw == 8) return args(latency_kernel<8>);
-  if (s.ntw == 4) return args(latency_kernel<4>);
-  if (s.ntw == 2) return args(latency_kernel<2>);
-  return args(latency_kernel<1>);
+  return active ? cudaOccupancyMaxActiveClusters(active, kernel, &cfg) : cudaSuccess;
 }
 
 // the picks made so far: a launch at a shape and forced cluster size seen
@@ -616,9 +652,10 @@ extern "C" {
 // 1 <= C <= 4 (the C*4 limb rows fit one m16 tile), B >= 1, levels >= 1,
 // 1 <= log_base <= 6 (digits and their negations fit int8), no sum can reach
 // 2^31, and some cluster size fits the card; and an error a launch before it
-// left pending.  info (host, 7 ints) receives the plan: cluster size,
+// left pending.  info (host, 8 ints) receives the plan: cluster size,
 // threads per CTA, dynamic shared memory bytes, the clusters of that size
-// the card holds at once, CTAs, key stages and k-splits.
+// the card holds at once, CTAs, key stages, k-splits and the cluster-wide
+// exchanges a step (2).
 int blind_rotate_latency(const void* acc0, const void* bk_lat, const void* a_vhat, void* out,
                          int n_steps, int B, int V, int C, int N, int levels, int log_base,
                          int ignored_bits, int cluster, int* info, void* stream) {
@@ -690,10 +727,12 @@ int blind_rotate_latency(const void* acc0, const void* bk_lat, const void* a_vha
   err = configure(s, cfg, attr, nullptr);
   if (err != cudaSuccess) return static_cast<int>(err);
   cfg.stream = static_cast<cudaStream_t>(stream);
-  const int plan[kPlanInts] = {s.cs, kThreads, s.smem, pick.active,
-                               static_cast<int>(cfg.gridDim.x), s.stages, s.ks};
+  const int plan[kPlanInts] = {s.cs, kThreads, s.smem, pick.active, static_cast<int>(cfg.gridDim.x),
+                               s.stages, s.ks, kExchanges};
   for (int k = 0; k < kPlanInts; ++k) info[k] = plan[k];
-  err = launch(s, cfg, acc0, bk_lat, a_vhat, out);
+  err = cudaLaunchKernelEx(&cfg, kernel_for(s), static_cast<const uint32_t*>(acc0),
+                           static_cast<const int8_t*>(bk_lat), static_cast<const int32_t*>(a_vhat),
+                           static_cast<uint32_t*>(out), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,12 @@ int8 limb rows K[(col, limb), (g, t, lane)] (``bk_latency_operand``, the same
 bytes as the JAX package's operand) and each sample's digit rows are
 contracted negacyclically against it.  The kernel does it on int8 tensor
 cores, one thread-block cluster per sample, its CTAs splitting the key
-columns (see the source).
+columns and each owning a slice of the accumulator's coefficients.  Every
+CTA also keeps the whole accumulator in shared memory and makes the digit
+words its key columns read from it, so a step takes two exchanges between
+the CTAs' shared memories and no cluster barrier: the partial deltas added
+into their owners' slices, and each owner's slice copied into every CTA
+(see the source for why each buffer is safe without a barrier).
 
 ``blind_rotate_latency`` launches ``csrc/latency_kernel.cu`` for CUDA tensors
 and runs its plain twin ``blind_rotate_latency_ref`` for CPU tensors; it
@@ -46,12 +51,14 @@ KERNEL = CudaKernel(
 )
 #: the keys of ``last_plan``, in the order the C entry point reports them
 PLAN_KEYS = ("cluster", "threads", "smem_bytes", "max_active_clusters", "ctas", "stages",
-             "k_splits")
+             "k_splits", "exchanges")
 #: the launch plan of the last launch: cluster size (CTAs per sample),
 #: threads per CTA, dynamic shared memory bytes, the clusters of that size
 #: the card can hold at once (``cudaOccupancyMaxActiveClusters``), CTAs, key
-#: stages in the ring and the k-splits of a CTA's key columns among its
-#: consumer warps
+#: stages in the ring, the k-splits of a CTA's key columns among its
+#: consumer warps and the cluster-wide exchanges a step (a fixed tag of the
+#: one schedule the kernel runs, always 2: the kernel reports it, it does not
+#: measure it)
 last_plan: dict = {}
 
 
