@@ -52,3 +52,25 @@ def idle_pct(run) -> float | None:
     if run.trace is None or run.trace.busy_s <= 0:
         return None
     return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
+
+
+def collective_pct(run) -> float | None:
+    """Device time of NCCL kernels, summed over the cards, over the traced
+    windows summed over the cards, in %.  An NCCL kernel on a card that
+    arrives first spins until its peers do, so this counts the wait for the
+    slowest card too."""
+    if run.card_traces is None or run.trace.window_s <= 0:
+        return None
+    nccl = [s for name, s in run.trace.device_s_by_name.items() if "nccl" in name.lower()]
+    return 100.0 * sum(nccl) / run.trace.window_s if nccl else None
+
+
+def card_skew_pct(run) -> float | None:
+    """How far the slowest card's blind rotations took longer than the mean
+    card's: 100 * (max / mean - 1) of each card's ``pbs.blind_rotate``
+    device seconds."""
+    if run.card_traces is None:
+        return None
+    rotation = [t.device_s_by_scope.get(ROTATION, 0.0) for t in run.card_traces]
+    mean = statistics.fmean(rotation)
+    return 100.0 * (max(rotation) / mean - 1.0) if mean > 0 else None

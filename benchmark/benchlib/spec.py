@@ -16,6 +16,7 @@ entries in ``BENCHMARK.json``; nothing here names one.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 from dataclasses import dataclass
@@ -70,6 +71,17 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
         end_to_end=tuple(m for m in bench["end_to_end"] if _applies(m, name)),
         per_layer=tuple(m for m in bench["per_layer"] if _applies(m, name)),
     )
+
+
+def cell_to_json(cell: Cell) -> str:
+    """``cell`` as loaded, for the ranks of a cell on more than one card."""
+    return json.dumps(dataclasses.asdict(cell))
+
+
+def cell_from_json(text: str) -> Cell:
+    fields = json.loads(text)
+    return Cell(**dict(fields, end_to_end=tuple(fields["end_to_end"]),
+                       per_layer=tuple(fields["per_layer"])))
 
 
 def load_module(kind: str, name: str, root: Path = ROOT):

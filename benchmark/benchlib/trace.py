@@ -51,16 +51,36 @@ class TraceSummary:
                 sorted(table.items(), key=lambda kv: -kv[1])[:count]]
 
 
+def summed(summaries: list) -> TraceSummary:
+    """The cards' summaries of one run as one: every second and count summed
+    over the cards, so that ``busy_s / window_s`` is the mean busy share."""
+    total = TraceSummary(window_s=sum(s.window_s for s in summaries),
+                         busy_s=sum(s.busy_s for s in summaries))
+    for name in ("device_s_by_scope", "device_s_by_name", "scope_counts", "idle_s_by_host",
+                 "cost_s"):
+        table = Counter()
+        for s in summaries:
+            table.update(getattr(s, name))
+        setattr(total, name, dict(table))
+    return total
+
+
 @contextlib.contextmanager
-def traced(device: torch.device):
-    """Profile the block; yields a list that holds the TraceSummary on exit."""
+def traced(device: torch.device, before_window=None, after_window=None):
+    """Profile the block; yields a list that holds the TraceSummary on exit.
+    ``before_window`` and ``after_window`` are called with the profiler on,
+    just before the window's range opens and just after it closes."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     out: list[TraceSummary] = []
     with torch.profiler.profile(activities=activities) as prof:
+        if before_window is not None:
+            before_window()
         with torch.profiler.record_function(WINDOW):
             yield out
+        if after_window is not None:
+            after_window()
         t = time.perf_counter()
     stop_s = time.perf_counter() - t
     t = time.perf_counter()

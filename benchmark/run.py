@@ -13,6 +13,12 @@ for, it exits with status 2 and prints no result; it never falls back to the
 CPU.  Where JAX or the JAX package is loaded once the window has closed
 (the metric readers and the check included), it exits with status 3 and
 prints no result.
+
+A cell on more than one card (``"chips"`` in BENCHMARK.json) runs as one
+process a card (``benchlib/ranks.py``), this one rank 0 on ``cuda:0``; it
+starts the others before its own ``import torch``.  Where one of them ends
+with a status other than 0, the run exits with status 4 and prints no
+result.
 """
 
 import time
@@ -31,7 +37,7 @@ for var, sub in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "torch
     os.environ.setdefault(var, str(ROOT / "build" / "bench_cache" / sub))
 sys.path[0] = str(ROOT)  # the program's package and ``benchmark`` live at the root
 
-from benchmark.benchlib import guard, spec  # noqa: E402
+from benchmark.benchlib import guard, ranks, spec  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -46,13 +52,21 @@ def main(argv=None) -> int:
 
     cell = spec.load_cell(args.workload)
     marks = {"python_s": time.perf_counter() - T_START}
+    group = None
+    if cell.chips > 1:  # the other ranks load torch while this process does
+        t = time.perf_counter()
+        group = ranks.Ranks.start(cell.chips, "cuda")
+        marks["spawn_s"] = time.perf_counter() - t
+    t = time.perf_counter()
     import torch
 
-    marks["import_torch_s"] = time.perf_counter() - T_START - marks["python_s"]
+    marks["import_torch_s"] = time.perf_counter() - t
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         found = torch.cuda.device_count() if torch.cuda.is_available() else 0
         print(f"benchmark: {cell.name} needs {cell.chips} CUDA card(s), found {found}",
               file=sys.stderr, flush=True)
+        if group is not None:
+            group.abort()
         return 2
     t = time.perf_counter()
     from benchmark.benchlib import runner
@@ -60,7 +74,8 @@ def main(argv=None) -> int:
     marks["import_program_s"] = time.perf_counter() - t
     guard.check_imports("after loading the cell")
     result = runner.run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                             torch.device("cuda", 0), T_START, control=args.control, marks=marks)
+                             torch.device("cuda", 0), T_START, control=args.control, marks=marks,
+                             group=group)
     guard.check_imports("before the result")
     runner.print_result(result)
     return 0

@@ -20,6 +20,7 @@ SMALL = {
 #: each cell's traffic cut down: a few ciphertexts a request, a small pool
 SMALL_TRAFFIC = {
     "gate_batch": {"batch": 4, "pool": 2},
+    "gate_batch_dp": {"batch": 8, "pool": 2},
     "ripple_add": {"width": 4, "batch": 2, "pool": 3},
 }
 

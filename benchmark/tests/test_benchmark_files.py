@@ -110,6 +110,14 @@ def test_at_most_a_quarter_of_the_cells_take_four_chips():
     assert four <= max(1, len(CELLS) // 4)
 
 
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"] if w["chips"] == 4])
+def test_a_four_chip_cell_has_its_workload_file_and_a_client_that_takes_a_mesh(cell):
+    assert (spec.BENCH_DIR / "workloads" / f"{cell}.json").is_file()
+    client = spec.load_cell(cell).traffic["client"]
+    assert (spec.BENCH_DIR / "clients" / f"{client}.py").is_file()
+    assert getattr(spec.client_class(client), "accepts_mesh", False) is True
+
+
 def test_files_under_paths_are_named_from_name_characters():
     for root in BENCH["paths"]:
         for path in (spec.ROOT / root).rglob("*"):

@@ -129,10 +129,11 @@ is_available, device_count = torch.cuda.is_available, torch.cuda.device_count
 torch.cuda.is_available, torch.cuda.device_count = (lambda: True), (lambda: 1)
 run_cell, metric_reader = runner.run_cell, spec.metric_reader
 
-def small_run(cell, seed, seconds, trace, device, t_start, control=False, marks=None):
+def small_run(cell, seed, seconds, trace, device, t_start, control=False, marks=None,
+              group=None):
     torch.cuda.is_available, torch.cuda.device_count = is_available, device_count
     return run_cell(cells.small_cell(cell.name), seed, seconds, trace, torch.device('cpu'),
-                    t_start, control=control, marks=marks)
+                    t_start, control=control, marks=marks, group=group)
 
 def planted_reader(name, root=spec.ROOT):
     read = metric_reader(name, root)
