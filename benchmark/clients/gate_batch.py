@@ -21,6 +21,10 @@ import tfhe_tpu_torch as tfhe
 from benchmark.reference import tfhe_ref as ref
 
 
+#: the traffic keys a CPU test overrides (``benchmark/tests/cells.py``)
+SMALL = {"batch": 4, "pool": 2}
+
+
 class Client:
     def __init__(self, ctx):
         self.ctx = ctx

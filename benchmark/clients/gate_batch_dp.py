@@ -28,6 +28,10 @@ from tfhe_tpu_torch.parallel.mesh import BATCH_AXIS, gather_batch
 from tfhe_tpu_torch.parallel.sharded import make_sharded_gate
 
 
+#: the traffic keys a CPU test overrides (``benchmark/tests/cells.py``)
+SMALL = {"batch": 8, "pool": 2}
+
+
 class Client(gate_batch.Client):
     #: this client runs on a mesh of cards (``Context.mesh``)
     accepts_mesh = True

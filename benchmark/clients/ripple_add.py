@@ -24,6 +24,10 @@ import tfhe_tpu_torch as tfhe
 from benchmark.reference import tfhe_ref as ref
 
 
+#: the traffic keys a CPU test overrides (``benchmark/tests/cells.py``)
+SMALL = {"width": 4, "batch": 2, "pool": 3}
+
+
 class Client:
     def __init__(self, ctx):
         if ctx.p.log_p != 2:

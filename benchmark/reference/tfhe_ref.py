@@ -61,6 +61,8 @@ class Params:
     pbs_levels: int
     lwe_std_dev: float
     glwe_std_dev: float
+    #: the convention of the blind rotation's digits: "carry" or "balanced"
+    pbs_digits: str = "carry"
 
     @property
     def k(self) -> int:
@@ -90,9 +92,12 @@ PARAM_KEYS = ("glwe_dimension", "log_degree", "lwe_dimension", "padding_bits", "
 
 
 def params_from_config(name: str, cfg: dict) -> Params:
-    p = Params(name=name, **{key: cfg[key] for key in PARAM_KEYS})
+    p = Params(name=name, pbs_digits=cfg.get("pbs_digits", "carry"),
+               **{key: cfg[key] for key in PARAM_KEYS})
     if p.log_q != 32:
         raise ValueError(f"{name}: the reference works on the 32-bit torus, log_q={p.log_q}")
+    if p.pbs_digits not in DIGITS:
+        raise ValueError(f"{name}: pbs_digits {p.pbs_digits!r} is none of {sorted(DIGITS)}")
     return p
 
 
@@ -144,20 +149,32 @@ def monomial_mul(poly: torch.Tensor, exp: torch.Tensor) -> torch.Tensor:
     return torch.gather(ext, -1, idx.expand(poly.shape))
 
 
+def gadget_shifts(log_base: int, levels: int) -> list[int]:
+    """The bit position of each level's weight, most significant first:
+    level j weighs 2^(32 - log_base*(j+1))."""
+    return [32 - log_base * (j + 1) for j in range(levels)]
+
+
+def _rounded(v: torch.Tensor, log_base: int, levels: int) -> torch.Tensor:
+    """v with the bits below the kept levels rounded off, half up, mod 2^32."""
+    ignored = 32 - log_base * levels
+    if not ignored:
+        return v
+    return (((v + (1 << (ignored - 1))) & MASK) >> ignored) << ignored
+
+
 def decompose(v: torch.Tensor, log_base: int, levels: int) -> torch.Tensor:
     """Signed gadget digits of u32 values, MSB-first: int64[..., levels].
 
-    Rounds the ignored low bits half up, then walks the base-2^log_base
+    Rounds the ignored low bits half up, then walks the kept base-2^log_base
     positions from the lowest with a carry: a digit with its top bit set
     becomes digit - B and carries 1 (decomposer.rs).  A digit B - 1 that
     meets a carry is B and carries nothing, so digits lie in [-B/2, B/2) or
     are B.  The positions below the kept ones hold only rounded-off bits:
     digits 0 that carry nothing."""
     half = 1 << (log_base - 1)
-    ignored = 32 - log_base * levels
-    if ignored:
-        v = (((v + (1 << (ignored - 1))) & MASK) >> ignored) << ignored
-    shifts = torch.arange(32 // log_base - levels, 32 // log_base, device=v.device) * log_base
+    v = _rounded(v, log_base, levels)
+    shifts = torch.tensor(gadget_shifts(log_base, levels)[::-1], device=v.device)
     x = (v[..., None] >> shifts) & ((1 << log_base) - 1)  # the kept positions, LSB first
     res, top, carry = [], [], 0
     for j in range(levels):
@@ -168,6 +185,28 @@ def decompose(v: torch.Tensor, log_base: int, levels: int) -> torch.Tensor:
         top.append(t)
     digits = torch.stack(res, dim=-1) - 2 * torch.stack(top, dim=-1)
     return digits.flip(-1)
+
+
+def decompose_balanced(v: torch.Tensor, log_base: int, levels: int) -> torch.Tensor:
+    """Balanced gadget digits of u32 values, MSB-first: int64[..., levels].
+
+    Rounds the ignored low bits half up as ``decompose`` does; the kept part
+    w is then written in base B = 2^log_base with every digit in [-B/2, B/2):
+    from the lowest level up, d = ((w + B/2) mod B) - B/2 and w = (w - d) / B;
+    what is left after the top level is dropped (it weighs 2^32).  So
+    sum_j d_j 2^(32 - log_base*(j+1)) is the rounded value mod 2^32."""
+    base, half = 1 << log_base, 1 << (log_base - 1)
+    w = _rounded(v, log_base, levels) >> (32 - log_base * levels)
+    digits = []
+    for _ in range(levels):
+        d = ((w + half) % base) - half
+        digits.append(d)
+        w = (w - d) >> log_base
+    return torch.stack(digits[::-1], dim=-1)
+
+
+#: the PBS digit conventions by the name a configuration gives them
+DIGITS = {"carry": decompose, "balanced": decompose_balanced}
 
 
 # ---------------------------------------------------------------------------
@@ -237,20 +276,16 @@ def _glwe_mask_dot(a: torch.Tensor, glwe_sk: torch.Tensor, rows_per_block: int =
 
 def derive_keys(p: Params, d: Draws) -> Keys:
     k, N = p.k, p.degree
-    # GGSW(s_i): row (c * levels + j) is GLWE(0) plus s_i * B^(l_full - j - 1)
+    # GGSW(s_i): row (c * levels + j) is GLWE(0) plus s_i * 2^(32 - b*(j+1))
     # on coefficient 0 of its polynomial c
     body = (_glwe_mask_dot(d.bk_a, d.glwe_sk) + d.bk_e) & MASK  # [n, R, N]
     bk = torch.cat([d.bk_a, body[:, :, None, :]], dim=2)  # [n, R, k+1, N]
-    l_full = 32 // p.pbs_log_base
     for c in range(k + 1):
-        for j in range(p.pbs_levels):
-            g = 1 << (p.pbs_log_base * (l_full - j - 1))
+        for j, shift in enumerate(gadget_shifts(p.pbs_log_base, p.pbs_levels)):
             r = c * p.pbs_levels + j
-            bk[:, r, c, 0] = (bk[:, r, c, 0] + d.lwe_sk * g) & MASK
-    # KSK: row (t * levels + j) encrypts glwe_sk[t] * B^(l_full - j - 1)
-    ks_full = 32 // p.ks_log_base
-    shifts = torch.tensor([p.ks_log_base * (ks_full - j - 1) for j in range(p.ks_levels)],
-                          device=d.ksk_a.device)
+            bk[:, r, c, 0] = (bk[:, r, c, 0] + (d.lwe_sk << shift)) & MASK
+    # KSK: row (t * levels + j) encrypts glwe_sk[t] * 2^(32 - b*(j+1))
+    shifts = torch.tensor(gadget_shifts(p.ks_log_base, p.ks_levels), device=d.ksk_a.device)
     factors = (d.glwe_sk.reshape(-1, 1) << shifts).reshape(-1)
     ksk = lwe_encrypt_raw(d.lwe_sk, factors, d.ksk_a, d.ksk_e)
     return Keys(bk=bk, ksk=ksk)
@@ -342,10 +377,10 @@ def _key_toeplitz_index(p: Params, cols: slice, device) -> torch.Tensor:
 def blind_rotate(p: Params, bk: torch.Tensor, acc: torch.Tensor, a_hat: torch.Tensor,
                  cols_per_block: int = 1024) -> torch.Tensor:
     """n CMUX steps: acc += EP(digits(acc * X^a_i - acc), BK_i), on acc[B, k+1, N]
-    (u32) with a_hat[B, n] in [0, 2N).  The external product contracts the
-    digit rows [B, R*N] with the step's key expanded to its negacyclic
-    Toeplitz form, built per step, ``cols_per_block`` output coefficients at
-    a time."""
+    (u32) with a_hat[B, n] in [0, 2N), the digits in ``p.pbs_digits``.  The
+    external product contracts the digit rows [B, R*N] with the step's key
+    expanded to its negacyclic Toeplitz form, built per step,
+    ``cols_per_block`` output coefficients at a time."""
     B, C, N = acc.shape
     R = p.rows
     blocks = [slice(o, min(o + cols_per_block, N)) for o in range(0, N, cols_per_block)]
@@ -353,9 +388,10 @@ def blind_rotate(p: Params, bk: torch.Tensor, acc: torch.Tensor, a_hat: torch.Te
     lo, hi = _halves(bk)
     src = torch.stack([lo, hi, -lo, -hi], dim=1).reshape(p.n, -1)  # each step's key, signed
     del lo, hi
+    digits_of = DIGITS[p.pbs_digits]
     for i in range(p.n):
         rot = monomial_mul(acc, a_hat[:, i, None])
-        digits = decompose((rot - acc) & MASK, p.pbs_log_base, p.pbs_levels)  # [B, C, N, L]
+        digits = digits_of((rot - acc) & MASK, p.pbs_log_base, p.pbs_levels)  # [B, C, N, L]
         d = digits.transpose(2, 3).reshape(B, R * N).to(torch.float64)  # rows c*L + j
         delta = []
         for idx in index:

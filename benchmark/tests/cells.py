@@ -1,6 +1,11 @@
 """Cells of BENCHMARK.json cut to sizes a CPU test can run: the nano and
 test_insecure lattices, small batches.  The program runs its kernels' plain
-twins on the CPU."""
+twins on the CPU.
+
+Each cell keeps its own configuration but for the lattice (``SMALL``), and
+takes its small traffic from its client's module (``clients/<client>.py``
+holds ``SMALL``, the traffic keys it overrides), so a new configuration or
+client needs nothing here."""
 
 from __future__ import annotations
 
@@ -11,22 +16,17 @@ import torch
 
 from benchmark.benchlib import runner, spec
 
-#: parameter sets for the tests, as configuration files state them
+#: the lattices of the tests: the only keys a test changes in a configuration
 SMALL = {
     "nano": {"glwe_dimension": 1, "log_degree": 6, "lwe_dimension": 4},
     "test_insecure": {"glwe_dimension": 2, "log_degree": 9, "lwe_dimension": 4},
 }
 
-#: each cell's traffic cut down: a few ciphertexts a request, a small pool
-SMALL_TRAFFIC = {
-    "gate_batch": {"batch": 4, "pool": 2},
-    "gate_batch_dp": {"batch": 8, "pool": 2},
-    "ripple_add": {"width": 4, "batch": 2, "pool": 3},
-}
 
-
-def small_config(name: str) -> dict:
-    base = spec.read_json(spec.BENCH_DIR / "configs" / "default_128.json")
+def small_config(name: str, config: str = "default_128") -> dict:
+    """``configs/<config>.json`` on the lattice ``name``; its decompositions,
+    digits, log_p and noise as they are."""
+    base = spec.read_json(spec.BENCH_DIR / "configs" / f"{config}.json")
     return dict(base, **SMALL[name])
 
 
@@ -36,9 +36,10 @@ def small_cell(cell_name: str, config: str = "nano", impl: str | None = None,
     workload = dict(cell.workload, check_requests=check_requests)
     if impl is not None:
         workload["impl"] = impl
+    client = cell.traffic["client"]
     return dataclasses.replace(
-        cell, config=small_config(config), config_name=config,
-        traffic=dict(cell.traffic, **SMALL_TRAFFIC[cell.traffic["client"]]),
+        cell, config=small_config(config, cell.config_name), config_name=config,
+        traffic=dict(cell.traffic, **spec.load_module("clients", client).SMALL),
         workload=workload)
 
 

@@ -7,6 +7,7 @@ import re
 import pytest
 
 from benchmark.benchlib import spec
+from benchmark.reference import tfhe_ref as ref
 
 BENCH = spec.benchmark_json()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -125,3 +126,12 @@ def test_files_under_paths_are_named_from_name_characters():
                 continue
             rel = path.relative_to(spec.ROOT).as_posix()
             assert PATH.match(rel), rel
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_a_base_that_does_not_divide_32_states_balanced_digits(config):
+    body = spec.read_json(spec.BENCH_DIR / "configs" / f"{config}.json")
+    digits = body.get("pbs_digits", "carry")
+    assert digits in ref.DIGITS
+    if 32 % body["pbs_log_base"]:  # the carry chain of decomposer.rs runs over 32 / log_base
+        assert digits == "balanced", config

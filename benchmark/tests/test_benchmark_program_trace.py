@@ -18,6 +18,7 @@ PROGRAM_METRICS = {
                      "pbs.host_ms_per_gate.add", "pbs.gate_idle_pct.add",
                      "circuits.host_ms_outside_gates_per_add"],
     "d128.gates.b1024": ["pbs.host_ms_per_gate.gates"],
+    "d128.gates.b64.nttf": ["pbs.host_ms_per_gate.nttf"],
 }
 
 
