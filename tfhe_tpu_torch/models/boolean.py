@@ -18,8 +18,8 @@ from tfhe_tpu_torch.models.keys import ClientKey, ServerKey
 from tfhe_tpu_torch.ops import sampling
 from tfhe_tpu_torch.ops.torus import decode as t_decode
 from tfhe_tpu_torch.ops.torus import encode as t_encode
-from tfhe_tpu_torch.ops.torus import to_torch_u32, u32
-from tfhe_tpu_torch.utils.profiling import card_wait, scope
+from tfhe_tpu_torch.ops.torus import u32
+from tfhe_tpu_torch.utils.profiling import scope
 
 # ---------------------------------------------------------------------------
 # client side
@@ -51,16 +51,14 @@ def decrypt(ck: ClientKey, cts) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _pbs_with_tv(sk: ServerKey, ct_in, tv_encoded, impl: str) -> torch.Tensor:
+def _pbs_with_tv(sk: ServerKey, ct_in, tv_key: tuple, impl: str) -> torch.Tensor:
     """The PBS of one gate, inside its ``pbs.gate`` scope: the test vector
-    is made a tensor on the key's device in ``pbs.test_vector`` (a copy to
-    the card from pageable host memory waits until the card has drained),
-    then ``bootstrap.pbs`` runs."""
+    ``tv_key`` = (kind, *args) comes from the device cache in
+    ``pbs.test_vector`` (``test_vector.on_device``: copied to the key's
+    device the first time only, so a gate that hits the cache does not wait
+    for the card), then ``bootstrap.pbs`` runs."""
     with scope("pbs.test_vector"):
-        tv = to_torch_u32(tv_encoded)
-        if sk.device.type != "cpu":
-            with card_wait("pbs"):
-                tv = tv.to(sk.device)
+        tv = mtv.on_device(sk.params, sk.device, *tv_key)
     return mboot.pbs(sk.params, ct_in, sk, tv, impl=impl)
 
 
@@ -69,15 +67,14 @@ def gate(sk: ServerKey, name: str, ct0, ct1, impl: str = "auto") -> torch.Tensor
     with scope("pbs.gate", gate=name, impl=impl):
         with scope("pbs.lincomb"):
             ct_in = mlwe.add(mlwe.scalar_mul(ct1, 2), ct0)
-        return _pbs_with_tv(sk, ct_in, mtv.gate_test_vector(sk.params, name), impl)
+        return _pbs_with_tv(sk, ct_in, ("gate", name), impl)
 
 
 def apply_lut(sk: ServerKey, ct, lut, impl: str = "auto") -> torch.Tensor:
     """Generic programmable bootstrap: ct already encodes the LUT index
     (0..2^log_p); ``lut`` maps each index to an output cleartext."""
     with scope("pbs.gate", gate="lut", impl=impl):
-        tv = mtv.lut_test_vector(sk.params, tuple(int(x) for x in lut))
-        return _pbs_with_tv(sk, ct, tv, impl)
+        return _pbs_with_tv(sk, ct, ("lut", tuple(int(x) for x in lut)), impl)
 
 
 def gate3(sk: ServerKey, name: str, ct2, ct1, ct0, impl: str = "auto") -> torch.Tensor:
@@ -86,7 +83,7 @@ def gate3(sk: ServerKey, name: str, ct2, ct1, ct0, impl: str = "auto") -> torch.
     with scope("pbs.gate", gate=name, impl=impl):
         with scope("pbs.lincomb"):
             ct_in = mlwe.add(mlwe.add(mlwe.scalar_mul(ct2, 4), mlwe.scalar_mul(ct1, 2)), ct0)
-        return _pbs_with_tv(sk, ct_in, mtv.gate3_test_vector(sk.params, name), impl)
+        return _pbs_with_tv(sk, ct_in, ("gate3", name), impl)
 
 
 def mux3(sk: ServerKey, sel, a, b, impl: str = "auto") -> torch.Tensor:
@@ -97,7 +94,7 @@ def mux3(sk: ServerKey, sel, a, b, impl: str = "auto") -> torch.Tensor:
 def bootstrap_identity(sk: ServerKey, ct, impl: str = "auto") -> torch.Tensor:
     """Noise-refreshing identity bootstrap (src/bootstrapping.rs tests)."""
     with scope("pbs.gate", gate="identity", impl=impl):
-        return _pbs_with_tv(sk, ct, mtv.identity_test_vector(sk.params), impl)
+        return _pbs_with_tv(sk, ct, ("identity",), impl)
 
 
 def not_(sk_or_params, ct) -> torch.Tensor:

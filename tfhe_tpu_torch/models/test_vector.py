@@ -1,8 +1,19 @@
 """Test-vector (LUT) polynomial construction (reference: src/test_vector.rs).
 
-Pure host-side NumPy: tiny tables built once per (params, gate) and cached.
-The PBS consumes the *encoded* polynomial (tv << (log_q - log_p - padding)),
-exactly as src/bootstrapping.rs:82-86 encodes it before the blind rotation.
+The tables are host-side NumPy, tiny, built once per (params, gate) and
+cached.  The PBS consumes the *encoded* polynomial (tv << (log_q - log_p -
+padding)), exactly as src/bootstrapping.rs:82-86 encodes it before the blind
+rotation.
+
+``on_device`` keeps each encoded test vector as an int32 tensor on each
+device that asks for it, in a bounded LRU keyed by (params, device, kind,
+arguments): the gates take their test vector from it, so a gate copies nothing
+to the card once its kind has been seen there.  A miss makes the tensor and,
+on a card, copies it there from pageable memory inside
+``card_wait("pbs")`` (a copy that waits until the card has drained); the
+program's counters (``utils/profiling.py``) count the misses under
+``pbs.test_vector_uploads`` and the hits under ``pbs.test_vector_hits``.
+The tensors are shared by every caller and must not be written to.
 """
 
 from __future__ import annotations
@@ -10,8 +21,11 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
 
+from tfhe_tpu_torch.ops.torus import to_torch_u32
 from tfhe_tpu_torch.params import TfheParams
+from tfhe_tpu_torch.utils.profiling import card_wait, count
 
 
 def construct_test_from_lut(params: TfheParams, lut) -> np.ndarray:
@@ -97,3 +111,42 @@ def identity_test_vector(params: TfheParams) -> np.ndarray:
     """Encoded identity LUT (src/test_vector.rs:23-35)."""
     lut = list(range(1 << params.log_p))
     return encode_tv(params, construct_test_from_lut(params, lut))
+
+
+#: the encoder of each kind of test vector ``on_device`` takes, and its arguments
+#: after the params: a gate's name, the LUT as a tuple of ints, a 3-input gate's
+#: name, none
+ENCODERS = {
+    "gate": gate_test_vector,
+    "lut": lut_test_vector,
+    "gate3": gate3_test_vector,
+    "identity": identity_test_vector,
+}
+#: the most tensors ``on_device`` keeps (2 KB each at N = 512)
+DEVICE_CACHE_SIZE = 256
+
+
+@lru_cache(maxsize=DEVICE_CACHE_SIZE)
+def _on_device(params: TfheParams, device: torch.device, kind: str, args: tuple) -> torch.Tensor:
+    count("pbs.test_vector_uploads")
+    tv = to_torch_u32(ENCODERS[kind](params, *args))
+    if device.type != "cpu":
+        with card_wait("pbs"):
+            tv = tv.to(device)
+    return tv
+
+
+def on_device(params: TfheParams, device: torch.device, kind: str, *args) -> torch.Tensor:
+    """The encoded test vector ``ENCODERS[kind](params, *args)`` as an int32
+    tensor on ``device``, made and copied there on the first call for that
+    key and kept for the later ones (module docstring).  Read-only."""
+    misses = _on_device.cache_info().misses
+    tv = _on_device(params, device, kind, args)
+    if _on_device.cache_info().misses == misses:  # the cache held it
+        count("pbs.test_vector_hits")
+    return tv
+
+
+def clear_device_cache() -> None:
+    """Drop every tensor ``on_device`` keeps."""
+    _on_device.cache_clear()
