@@ -75,6 +75,19 @@ def test_the_cache_is_bounded():
     assert mtv.on_device(params, CPU, "gate", "xor") is not first  # the oldest went
 
 
+def test_no_cache_of_the_module_outgrows_the_device_cache():
+    """300 distinct LUTs through ``on_device``: no cache in
+    ``models/test_vector.py`` holds more than ``DEVICE_CACHE_SIZE`` entries
+    (the numpy encoders keep no cache of their own)."""
+    params = tfhe.get_params("nano_3in")  # log_p = 3: 8^8 distinct LUTs
+    for lut in itertools.islice(itertools.product(range(8), repeat=8), 300):
+        mtv.on_device(params, CPU, "lut", lut)
+    sizes = {name: f.cache_info().currsize for name, f in vars(mtv).items()
+             if hasattr(f, "cache_info")}
+    assert sizes["_on_device"] == mtv.DEVICE_CACHE_SIZE
+    assert max(sizes.values()) <= mtv.DEVICE_CACHE_SIZE, sizes
+
+
 def _reversed_lut(p):
     return tuple(range(1 << p.log_p))[::-1]
 

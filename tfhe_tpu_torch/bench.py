@@ -42,8 +42,8 @@ import tfhe_tpu_torch as tfhe
 from tfhe_tpu_torch.models import keyswitch as mks
 from tfhe_tpu_torch.models import lwe as mlwe
 from tfhe_tpu_torch.models import test_vector as mtv
-from tfhe_tpu_torch.models.bootstrap import VALID_IMPLS, blind_rotate, pbs, sample_extract0
-from tfhe_tpu_torch.ops.torus import switch_modulus, to_numpy_u32, to_torch_u32
+from tfhe_tpu_torch.models.bootstrap import IMPLS, VALID_IMPLS, blind_rotate, pbs, sample_extract0
+from tfhe_tpu_torch.ops.torus import switch_modulus, to_numpy_u32
 from tfhe_tpu_torch.utils import noise as unoise
 from tfhe_tpu_torch.utils.profiling import (
     capture_trace, card_name_and_power_limit, clock_samples, synchronize, time_best,
@@ -71,11 +71,8 @@ def resolve_bench_impl(impl: str, on_card: bool) -> str:
 
 
 def default_batch(impl: str, on_card: bool) -> int:
-    if impl == "fusedl":
-        return 8  # the latency kernel's cap (ops/cuda/latency_kernel.py)
-    if impl == "bmmpl":
-        return 4
-    return 1024 if on_card else 64
+    """The impl's batch cap, else 1024 on the card and 64 on the CPU."""
+    return IMPLS[impl].batch_cap or (1024 if on_card else 64)
 
 
 def card_fields(device: torch.device) -> dict:
@@ -123,9 +120,9 @@ def main(argv=None):
     log(f"device: {device} ({card['card']}, {card['power_limit']}), params: {params.name}, "
         f"impl: {impl}, batch: {batch}")
 
+    rec = IMPLS[impl]
     t0 = time.perf_counter()
-    need_bmmp = impl in ("bmmp", "bmmpl")
-    ck, sk = tfhe.keygen(params, 0, device=device, bmmp=need_bmmp)
+    ck, sk = tfhe.keygen(params, 0, device=device, bmmp=rec.bmmp)
     synchronize(sk.bk_u32)
     keygen_s = time.perf_counter() - t0
     bk_mb = sk.bk_u32.numel() * 4 / 1e6
@@ -136,7 +133,7 @@ def main(argv=None):
     keyform_s = time.perf_counter() - t0
     log(f"key form for {impl}: {keyform_s:.2f}s")
 
-    tv = to_torch_u32(mtv.gate_test_vector(params, "nand"), device)
+    tv = mtv.on_device(params, device, "gate", "nand")
 
     def gate(ct0, ct1):
         ct_in = mlwe.add(mlwe.scalar_mul(ct1, 2), ct0)
@@ -170,10 +167,9 @@ def main(argv=None):
         "impl": impl,
         # balanced closed-form digits: exact mod-2^32, digit convention
         # differs from the reference trace (DIVERGENCES.md #3)
-        "digit_convention": (
-            "balanced-exact" if impl in ("fusedb", "fusedb3", "fusedwb") else "reference"),
+        "digit_convention": "balanced-exact" if rec.digits == "balanced" else "reference",
         # truncated-key modes drop the low key byte: approximate
-        "approx_truncated_key": impl in ("fused3", "fusedb3", "fusedc3", "fusedp3"),
+        "approx_truncated_key": rec.truncated,
         "batch": batch,
         "keygen_s": round(keygen_s, 2),
         "bk_mbytes": round(bk_mb, 1),
@@ -183,11 +179,11 @@ def main(argv=None):
         # BMMP impls run n/2 steps of 3R rows = 1.5x the MACs and 3x the key
         # bytes per (twice-as-long) step
         "int8_tops": round(
-            (1.5 if impl in ("bmmp", "bmmpl") else 1.0)
+            (1.5 if rec.bmmp else 1.0)
             * 2 * batch * params.lwe_dimension
             * (params.glwe_dimension + 1) ** 2 * params.pbs_decomposer.levels
             * 4 * params.degree ** 2 / best / 1e12, 1),
-        "bk_bytes_per_step": (3 if impl in ("bmmp", "bmmpl") else 1)
+        "bk_bytes_per_step": (3 if rec.bmmp else 1)
         * (params.glwe_dimension + 1) ** 2
         * params.pbs_decomposer.levels * params.degree * 4,
         "device": str(device),

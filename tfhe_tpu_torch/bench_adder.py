@@ -32,7 +32,7 @@ import torch
 import tfhe_tpu_torch as tfhe
 from tfhe_tpu_torch.bench import card_fields
 from tfhe_tpu_torch.models import circuits as mcirc
-from tfhe_tpu_torch.models.bootstrap import VALID_IMPLS
+from tfhe_tpu_torch.models.bootstrap import IMPLS, VALID_IMPLS, resolve_impl
 from tfhe_tpu_torch.ops.torus import to_numpy_u32
 from tfhe_tpu_torch.utils import noise as unoise
 from tfhe_tpu_torch.utils.profiling import synchronize, time_best
@@ -65,7 +65,8 @@ def main(argv=None):
         f"impl: {impl}, width: {w}, batch: {batch}")
 
     t0 = time.perf_counter()
-    ck, sk = tfhe.keygen(params, 0, device=device, bmmp=impl in ("bmmp", "bmmpl"))
+    bmmp = IMPLS[resolve_impl(impl, device)].bmmp
+    ck, sk = tfhe.keygen(params, 0, device=device, bmmp=bmmp)
     synchronize(sk.bk_u32)
     log(f"keygen: {time.perf_counter()-t0:.1f}s")
     t0 = time.perf_counter()

@@ -9,53 +9,15 @@ Pipeline (src/bootstrapping.rs:58-120):
   4. sample-extract coefficient 0 -> LWE of dimension k*N;
   5. key-switch back to dimension n.
 
-Blind-rotation backends, all exact mod 2^32 but the truncated-key modes
-(``*3``):
-
-  * ``conv`` — the scan of JAX's ``conv`` backend (``rotate_chunk_xla``): a
-    Python loop over the steps, batch-major digits [B, R, N], and each
-    step's contraction in Kernel H (``ops/cuda/ep_kernel.py:ep_contract``)
-    against the step's canonical ``bk_u32`` rows.  JAX's ``conv`` reads
-    ``ServerKey.bk_conv`` (int8, kernel-reversed limbs of the key); Kernel H
-    stages the sign-twisted limbs itself, so the port's ``ServerKey`` has no
-    ``bk_conv`` (80 MB at default_128) and the pipeline stages pass
-    ``bk_u32`` slices for 'conv'.
-  * ``matmul`` — the same scan with the plain Toeplitz matmul contraction
-    (``rotate_chunk_xla``'s other branch).  Runs anywhere: the explicit
-    reference.
-  * ``pallas`` — the same loop with the transpose-free [k+1, B, N]
-    accumulator, level-major digit rows and ``ServerKey.bk_lm``; each step's
-    contraction is Kernel A (``ops/cuda/ep_kernel.py``).  Default on CUDA.
-  * ``fused`` / ``fusedb`` — the whole rotation in one launch of Kernel B
-    (``ops/cuda/blind_rotate_kernel.py``), with the reference carry-chain
-    digits or the closed-form balanced digits (DIVERGENCES.md #3);
-    ``fused3`` / ``fusedb3`` the same with the truncated key (the low byte
-    of each sign-twisted key word dropped: approximate, it spends part of
-    the gate's noise margin).
-  * ``fusedp`` / ``fusedp3`` — Kernel E, the software-pipelined whole scan
-    (carry-chain digits, exact or truncated key); ``fusedw`` / ``fusedwb`` —
-    Kernel F, the wide-contraction pipelined scan (exact key, carry-chain or
-    balanced digits); ``fusedc`` / ``fusedc3`` — Kernel G, the column-split
-    scan on thread-block clusters (carry-chain digits, exact or truncated
-    key).  All in ``ops/cuda/blind_rotate_kernel.py``; at one digit
-    convention and key width every whole-scan impl gives the same bits.
-  * ``bmmp`` — the BMMP halved-depth scan (n/2 steps against the
-    ``keygen(bmmp=True)`` triples); each step's contraction is Kernel A.
-  * ``fusedl`` / ``bmmpl`` — the small-batch latency path (B <= 8, resp.
-    B <= 4 for the BMMP form): the whole rotation in one launch of Kernel C
-    (``ops/cuda/latency_kernel.py``), carry-chain digits.
-  * ``ntt`` / ``ntts`` — the block-NTT scan (``ops/ntt.py``): per step, one
-    NTT-domain contraction, against the resident ``ServerKey.bk_ntt``
-    (``with_ntt_key``) or, streaming, against each step's key transformed
-    from ``bk_u32`` inside the loop.  Plain PyTorch, as the JAX package runs
-    them through XLA.
-  * ``nttf`` — the whole block-NTT rotation in one launch of Kernel D
-    (``ops/cuda/ntt_kernel.py``) on ``ServerKey.bk_ntt_lhs``
-    (``with_ntt_lhs_key``), any batch in one launch.
-
-The block-NTT impls use the reference carry-chain digits, so 'ntt', 'ntts'
-and 'nttf' equal 'fused' bit for bit.  An impl whose key form is missing
-raises ``ValueError`` naming the function that attaches it.
+Each blind-rotation impl string is one record of ``IMPLS``: the rotation it
+runs, the ``ServerKey`` field that rotation reads, its batch cap, its digit
+convention and whether its key is truncated.  ``blind_rotate``,
+``keys.with_key_form``, the benches and ``parallel/`` read those facts
+there.  Every impl is exact mod 2^32 but the truncated-key ones (``*3``: the
+low byte of each sign-twisted key word dropped, approximate, it spends part
+of the gate's noise margin); at one digit convention and key width every
+impl gives the same bits.  A key without the field an impl reads raises
+``ValueError`` naming the call that attaches it.
 
 On CPU tensors the kernel backends run their kernels' plain twins.  They
 play the role of the JAX package's ``*_interpret`` impls (the Pallas kernel
@@ -63,6 +25,10 @@ run on the CPU), which have no counterpart here.
 """
 
 from __future__ import annotations
+
+from collections.abc import Callable
+from dataclasses import dataclass
+from functools import partial
 
 import torch
 
@@ -79,36 +45,6 @@ from tfhe_tpu_torch.ops.poly import ep_combine, ep_combine_planes, monomial_mul
 from tfhe_tpu_torch.ops.torus import switch_modulus, u32
 from tfhe_tpu_torch.params import TfheParams
 from tfhe_tpu_torch.utils.profiling import count, scope
-
-#: every backend string ``blind_rotate`` accepts: the JAX package's, in its
-#: order, less the ``*_interpret`` modes
-VALID_IMPLS = ("auto", "conv", "matmul", "pallas", "fused", "fused3", "fusedb", "fusedb3",
-               "fusedc", "fusedc3", "fusedp", "fusedp3", "fusedw", "fusedwb",
-               "bmmp", "ntt", "ntts", "nttf", "fusedl", "bmmpl")
-
-#: the whole-scan impls: their wrapper and its options
-_WHOLE_SCAN = {
-    "fused": (brk.blind_rotate_fused, {}),
-    "fused3": (brk.blind_rotate_fused, {"key_limbs": 3}),
-    "fusedb": (brk.blind_rotate_fused, {"balanced": True}),
-    "fusedb3": (brk.blind_rotate_fused, {"balanced": True, "key_limbs": 3}),
-    "fusedc": (brk.blind_rotate_fused_cols, {}),
-    "fusedc3": (brk.blind_rotate_fused_cols, {"key_limbs": 3}),
-    "fusedp": (brk.blind_rotate_fused_pipe, {}),
-    "fusedp3": (brk.blind_rotate_fused_pipe, {"key_limbs": 3}),
-    "fusedw": (brk.blind_rotate_fused_wide_pipe, {}),
-    "fusedwb": (brk.blind_rotate_fused_wide_pipe, {"balanced": True}),
-}
-
-
-def resolve_impl(impl: str, device) -> str:
-    """'auto' -> 'pallas' for CUDA tensors, 'matmul' on the CPU
-    (as ``tfhe_tpu``'s 'auto' picks its per-step kernel on the accelerator)."""
-    if impl not in VALID_IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; valid: {VALID_IMPLS}")
-    if impl != "auto":
-        return impl
-    return "pallas" if torch.device(device).type == "cuda" else "matmul"
 
 
 def sample_extract(glwe_ct, index=0) -> torch.Tensor:
@@ -205,20 +141,6 @@ def rotate_chunk_ntt(params: TfheParams, acc, bk_chunk, a_chunk, stream: bool = 
     return acc
 
 
-def rotate_chunk(params: TfheParams, acc, bk_chunk, a_chunk, impl: str) -> torch.Tensor:
-    """Backend-generic rotation chunk, [B, k+1, N] acc in and out (the chunk
-    the pipeline stages run).  ``bk_chunk`` is the matching key form: a slice
-    of ``bk_u32`` for 'matmul' and 'conv', of ``bk_lm`` for 'pallas', of
-    ``bk_ntt`` for 'ntt'.  Any other impl raises ``ValueError``."""
-    if impl == "pallas":
-        return rotate_chunk_pallas(params, acc, bk_chunk, a_chunk)
-    if impl == "ntt":
-        return rotate_chunk_ntt(params, acc, bk_chunk, a_chunk)
-    if impl in EP_CONTRACTIONS:
-        return rotate_chunk_batch_major(params, acc, bk_chunk, a_chunk, impl)
-    raise ValueError(f"rotate_chunk runs 'matmul', 'conv', 'pallas' or 'ntt', got {impl!r}")
-
-
 def _bmmp_exponents(params: TfheParams, a_hat):
     """The BMMP pair exponents (a+a' mod 2N, a, a'), each int32[n/2, B]."""
     a0, a1 = a_hat[0::2], a_hat[1::2]
@@ -248,61 +170,128 @@ def _blind_rotate_bmmp(params: TfheParams, acc0, bk_bmmp_lm, a_hat) -> torch.Ten
     return acc.transpose(0, 1).contiguous()
 
 
-def _require_bmmp_key(server_key) -> None:
-    if server_key.bk_bmmp_lm is None:
-        raise ValueError("this impl needs the BMMP key: keygen(..., bmmp=True), or "
-                         "keys_from_numpy(..., bk_bmmp_lm=...)")
+def _rotate_latency(params: TfheParams, acc0, bk_lat, a_hat) -> torch.Tensor:
+    """Kernel C at V=1: the masks as the one variant."""
+    return latk.blind_rotate_latency(params, acc0, bk_lat, a_hat[:, None, :])
 
 
-def _require_latency_key(bk_lat) -> torch.Tensor:
-    if bk_lat is None:
-        raise ValueError("this impl needs the latency key operand: with_latency_key(server_key)")
-    return bk_lat
+def _rotate_latency_bmmp(params: TfheParams, acc0, bk_lat, a_hat) -> torch.Tensor:
+    """Kernel C at V=3: the BMMP pair exponents as the three variants."""
+    a_v = torch.stack(_bmmp_exponents(params, a_hat), dim=1).contiguous()
+    return latk.blind_rotate_latency(params, acc0, bk_lat, a_v)
 
 
-def _require_ntt_key(bk, attach: str) -> torch.Tensor:
-    if bk is None:
-        raise ValueError(f"this impl needs an NTT key form: {attach}(server_key)")
-    return bk
+@dataclass(frozen=True)
+class Impl:
+    """One blind-rotation impl.  ``rotate(params, acc0, bk, a_hat)`` runs it
+    (acc0 u32[B, k+1, N], a_hat int32[n, B] -> the final accumulator) on
+    ``bk``, the ``ServerKey`` field named ``key``; ``batch_cap`` is the most
+    ciphertexts a call takes (None: any); ``digits`` is 'carry' (the
+    reference's carry chain) or 'balanced' (the closed form, DIVERGENCES.md
+    #3); ``truncated`` says whether the key's low byte is dropped."""
+
+    rotate: Callable[..., torch.Tensor]
+    key: str = "bk_u32"
+    batch_cap: int | None = None
+    digits: str = "carry"
+    truncated: bool = False
+
+    @property
+    def bmmp(self) -> bool:
+        """Whether it runs the BMMP halved-depth scan, on the triples of
+        ``keygen(..., bmmp=True)``."""
+        return self.key.startswith("bk_bmmp")
+
+
+def _whole_scan(rotate, digits: str = "carry", truncated: bool = False) -> Impl:
+    """An impl of Kernel B, E, F or G: the wrapper on ``bk_u32`` with the
+    options its digits and key width ask for."""
+    options = {"balanced": True} if digits == "balanced" else {}
+    if truncated:
+        options["key_limbs"] = 3
+    return Impl(partial(rotate, **options), digits=digits, truncated=truncated)
+
+
+#: every blind-rotation impl, in the JAX package's order
+IMPLS: dict[str, Impl] = {
+    # per-step scans: Kernel H on batch-major digits (JAX's 'conv' reads
+    # ``bk_conv``; Kernel H stages the sign-twisted limbs itself, so the port
+    # has no such field), the plain Toeplitz matmul (runs anywhere: the
+    # explicit reference), Kernel A on level-major digit rows
+    "conv": Impl(partial(rotate_chunk_batch_major, impl="conv")),
+    "matmul": Impl(partial(rotate_chunk_batch_major, impl="matmul")),
+    "pallas": Impl(rotate_chunk_pallas, "bk_lm"),
+    # the whole rotation in one launch: Kernel B ('fused*'), G ('fusedc*'),
+    # E ('fusedp*'), F ('fusedw*'); BMMP: n/2 steps of Kernel A at 3R rows
+    "fused": _whole_scan(brk.blind_rotate_fused),
+    "fused3": _whole_scan(brk.blind_rotate_fused, truncated=True),
+    "fusedb": _whole_scan(brk.blind_rotate_fused, "balanced"),
+    "fusedb3": _whole_scan(brk.blind_rotate_fused, "balanced", truncated=True),
+    "fusedc": _whole_scan(brk.blind_rotate_fused_cols),
+    "fusedc3": _whole_scan(brk.blind_rotate_fused_cols, truncated=True),
+    "fusedp": _whole_scan(brk.blind_rotate_fused_pipe),
+    "fusedp3": _whole_scan(brk.blind_rotate_fused_pipe, truncated=True),
+    "fusedw": _whole_scan(brk.blind_rotate_fused_wide_pipe),
+    "fusedwb": _whole_scan(brk.blind_rotate_fused_wide_pipe, "balanced"),
+    "bmmp": Impl(_blind_rotate_bmmp, "bk_bmmp_lm"),
+    # block NTT: per step against the resident form or against each step's
+    # key transformed in the loop, plain PyTorch as JAX runs them through
+    # XLA; the whole rotation in Kernel D
+    "ntt": Impl(rotate_chunk_ntt, "bk_ntt"),
+    "ntts": Impl(partial(rotate_chunk_ntt, stream=True)),
+    "nttf": Impl(nttk.blind_rotate_nttf, "bk_ntt_lhs"),
+    # the small-batch path: the whole rotation in Kernel C
+    "fusedl": Impl(_rotate_latency, "bk_lat", latk.MAX_LATENCY_BATCH),
+    "bmmpl": Impl(_rotate_latency_bmmp, "bk_bmmp_lat", latk.MAX_LATENCY_BATCH_BMMP),
+}
+#: every impl string ``blind_rotate`` accepts: the JAX package's, in its
+#: order, less the ``*_interpret`` modes
+VALID_IMPLS = ("auto", *IMPLS)
+#: the impls whose rotation runs on a pipeline stage's chunk of steps
+CHUNK_IMPLS = ("conv", "matmul", "pallas", "ntt")
+
+
+def resolve_impl(impl: str, device) -> str:
+    """'auto' -> 'pallas' for CUDA tensors, 'matmul' on the CPU
+    (as ``tfhe_tpu``'s 'auto' picks its per-step kernel on the accelerator)."""
+    if impl not in VALID_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; valid: {VALID_IMPLS}")
+    if impl != "auto":
+        return impl
+    return "pallas" if torch.device(device).type == "cuda" else "matmul"
+
+
+def rotate_chunk(params: TfheParams, acc, bk_chunk, a_chunk, impl: str) -> torch.Tensor:
+    """The rotation of ``impl`` over a chunk of steps, [B, k+1, N] acc in and
+    out (the chunk the pipeline stages run).  ``bk_chunk`` is the matching
+    slice of the impl's key field (``IMPLS[impl].key``).  An impl outside
+    ``CHUNK_IMPLS`` raises ``ValueError``."""
+    if impl not in CHUNK_IMPLS:
+        raise ValueError(f"rotate_chunk runs {CHUNK_IMPLS}, got {impl!r}")
+    return IMPLS[impl].rotate(params, acc, bk_chunk, a_chunk)
 
 
 def blind_rotate(params: TfheParams, approx_ct, server_key, tv_encoded,
                  impl: str = "auto") -> torch.Tensor:
-    """n-step CMUX loop (src/bootstrapping.rs:79-105); batched.
+    """n-step CMUX loop (src/bootstrapping.rs:79-105); batched, by the
+    record ``IMPLS[impl]``.
 
     approx_ct: u32[B, n+1] already mod-switched to 2N; tv_encoded: u32[N]
-    (the *encoded* test vector, src/bootstrapping.rs:82-86).
+    (the *encoded* test vector, src/bootstrapping.rs:82-86).  An unknown
+    impl, a batch above the impl's cap, a key without the BMMP triples or
+    without the impl's key field raise ``ValueError`` before anything is
+    launched.
     """
     approx_ct = u32(approx_ct)
-    impl = resolve_impl(impl, approx_ct.device)
-    if impl in ("fusedl", "bmmpl"):  # before anything is launched
-        latk.check_batch(approx_ct.shape[0], 1 if impl == "fusedl" else 3)
-    if impl in ("bmmp", "bmmpl"):
-        _require_bmmp_key(server_key)
+    rec = IMPLS[resolve_impl(impl, approx_ct.device)]
+    if rec.batch_cap is not None:  # Kernel C: 3 variants a step for the BMMP triples
+        latk.check_batch(approx_ct.shape[0], 3 if rec.bmmp else 1)
+    if rec.bmmp and server_key.bk_bmmp_lm is None:
+        raise ValueError("this impl needs the BMMP key: keygen(..., bmmp=True), or "
+                         "keys_from_numpy(..., bk_bmmp_lm=...)")
+    bk = server_key.form(rec.key)
     acc0, a_hat = _init_acc(params, approx_ct, tv_encoded)
-    if impl in _WHOLE_SCAN:
-        rotate, options = _WHOLE_SCAN[impl]
-        return rotate(params, acc0, server_key.bk_u32, a_hat, **options)
-    if impl == "fusedl":
-        bk_lat = _require_latency_key(server_key.bk_lat)
-        return latk.blind_rotate_latency(params, acc0, bk_lat, a_hat[:, None, :])
-    if impl == "bmmpl":
-        bk_lat = _require_latency_key(server_key.bk_bmmp_lat)
-        a_v = torch.stack(_bmmp_exponents(params, a_hat), dim=1).contiguous()
-        return latk.blind_rotate_latency(params, acc0, bk_lat, a_v)
-    if impl == "bmmp":
-        return _blind_rotate_bmmp(params, acc0, server_key.bk_bmmp_lm, a_hat)
-    if impl == "nttf":
-        bk_lhs = _require_ntt_key(server_key.bk_ntt_lhs, "with_ntt_lhs_key")
-        return nttk.blind_rotate_nttf(params, acc0, bk_lhs, a_hat)
-    if impl == "ntt":
-        bk_ntt = _require_ntt_key(server_key.bk_ntt, "with_ntt_key")
-        return rotate_chunk_ntt(params, acc0, bk_ntt, a_hat)
-    if impl == "ntts":
-        return rotate_chunk_ntt(params, acc0, server_key.bk_u32, a_hat, stream=True)
-    if impl == "pallas":
-        return rotate_chunk_pallas(params, acc0, server_key.bk_lm, a_hat)
-    return rotate_chunk_batch_major(params, acc0, server_key.bk_u32, a_hat, impl)
+    return rec.rotate(params, acc0, bk, a_hat)
 
 
 def pbs(params: TfheParams, ct, server_key, tv_encoded, impl: str = "auto") -> torch.Tensor:

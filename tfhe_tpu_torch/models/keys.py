@@ -35,6 +35,7 @@ import torch
 from tfhe_tpu_torch.models import ggsw as mggsw
 from tfhe_tpu_torch.models import glwe as mglwe
 from tfhe_tpu_torch.models import keyswitch as mks
+from tfhe_tpu_torch.models.bootstrap import IMPLS
 from tfhe_tpu_torch.ops import sampling
 from tfhe_tpu_torch.ops.cuda.ntt_kernel import lhs_key_shape
 from tfhe_tpu_torch.ops.ntt import make_ep_ntt_key, ntt_key_lhs_form, plan_for_params
@@ -95,6 +96,16 @@ class ServerKey:
         moved = {f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
                  if isinstance(getattr(self, f.name), torch.Tensor)}
         return dataclasses.replace(self, **moved)
+
+    def form(self, field: str) -> torch.Tensor:
+        """The key tensor ``field`` (an impl's ``bootstrap.IMPLS[impl].key``);
+        ``ValueError`` naming the call that attaches it when the key lacks it."""
+        bk = getattr(self, field)
+        if bk is None:
+            made = (f"{KEY_FORMS[field][0].__name__}(server_key)" if field in KEY_FORMS
+                    else "keygen or server_key_from_numpy")
+            raise ValueError(f"this impl needs the key form {field}: {made}")
+        return bk
 
 
 def _server_key_from_canonical(params: TfheParams, bk_u32, ksk_u32,
@@ -264,20 +275,27 @@ def with_ntt_lhs_key(sk: ServerKey, drop_rhs: bool = False) -> ServerKey:
     return dataclasses.replace(sk, bk_ntt_lhs=lhs, bk_ntt=None if drop_rhs else sk.bk_ntt)
 
 
+#: each optional key form an impl reads, the call that attaches it and the
+#: options ``with_key_form`` gives that call (the lhs NTT form alone, for 'nttf')
+KEY_FORMS = {
+    "bk_lat": (with_latency_key, {}),
+    "bk_bmmp_lat": (with_latency_key, {}),
+    "bk_ntt": (with_ntt_key, {}),
+    "bk_ntt_lhs": (with_ntt_lhs_key, {"drop_rhs": True}),
+}
+
+
 def with_key_form(sk: ServerKey, impl: str) -> ServerKey:
-    """``sk`` with the derived key form ``impl`` reads attached: the latency
-    operands for 'fusedl' and 'bmmpl' (``with_latency_key``), the NTT form for
-    'ntt' (``with_ntt_key``), the lhs NTT form alone for 'nttf'
-    (``with_ntt_lhs_key(drop_rhs=True)``).  Every other impl reads the
-    canonical keys and gets ``sk`` back.  (The JAX package derives these
-    forms inside the call; the port builds them once, at key load.)"""
-    if impl in ("fusedl", "bmmpl"):
-        return with_latency_key(sk)
-    if impl == "ntt":
-        return with_ntt_key(sk)
-    if impl == "nttf":
-        return with_ntt_lhs_key(sk, drop_rhs=True)
-    return sk
+    """``sk`` with the derived key form ``impl`` reads attached
+    (``bootstrap.IMPLS[impl].key`` in ``KEY_FORMS``).  An impl that reads the
+    canonical keys, or a name outside the table, gets ``sk`` back.  (The JAX
+    package derives these forms inside the call; the port builds them once,
+    at key load.)"""
+    rec = IMPLS.get(impl)
+    if rec is None or rec.key not in KEY_FORMS:
+        return sk
+    attach, options = KEY_FORMS[rec.key]
+    return attach(sk, **options)
 
 
 def keygen(params: TfheParams, generator: torch.Generator | int = 0,

@@ -1,14 +1,14 @@
 """Test-vector (LUT) polynomial construction (reference: src/test_vector.rs).
 
-The tables are host-side NumPy, tiny, built once per (params, gate) and
-cached.  The PBS consumes the *encoded* polynomial (tv << (log_q - log_p -
-padding)), exactly as src/bootstrapping.rs:82-86 encodes it before the blind
-rotation.
+The tables are host-side NumPy, tiny, built on each call.  The PBS
+consumes the *encoded* polynomial (tv << (log_q - log_p - padding)), exactly
+as src/bootstrapping.rs:82-86 encodes it before the blind rotation.
 
 ``on_device`` keeps each encoded test vector as an int32 tensor on each
 device that asks for it, in a bounded LRU keyed by (params, device, kind,
-arguments): the gates take their test vector from it, so a gate copies nothing
-to the card once its kind has been seen there.  A miss makes the tensor and,
+arguments), the module's one cache: the gates, the bench and the sharded and
+pipelined gates take their test vector from it, so a gate copies nothing to
+the card once its kind has been seen there.  A miss makes the tensor and,
 on a card, copies it there from pageable memory inside
 ``card_wait("pbs")`` (a copy that waits until the card has drained); the
 program's counters (``utils/profiling.py``) count the misses under
@@ -69,7 +69,6 @@ GATE_FNS = {
 }
 
 
-@lru_cache(maxsize=None)
 def gate_test_vector(params: TfheParams, gate: str) -> np.ndarray:
     """Encoded test vector for a named 2-input gate: input index i decodes as
     (lhs, rhs) = (bit1(i), bit0(i)) (src/test_vector.rs:5-20)."""
@@ -78,7 +77,6 @@ def gate_test_vector(params: TfheParams, gate: str) -> np.ndarray:
     return encode_tv(params, construct_test_from_lut(params, lut))
 
 
-@lru_cache(maxsize=None)
 def lut_test_vector(params: TfheParams, lut: tuple) -> np.ndarray:
     """Encoded test vector for an arbitrary LUT over the 2^log_p cleartext
     space (generic programmable bootstrapping)."""
@@ -96,7 +94,6 @@ GATE3_FNS = {
 }
 
 
-@lru_cache(maxsize=None)
 def gate3_test_vector(params: TfheParams, gate: str) -> np.ndarray:
     """Encoded test vector for a named 3-input gate: index i decodes as
     (bit2, bit1, bit0)."""
@@ -106,7 +103,6 @@ def gate3_test_vector(params: TfheParams, gate: str) -> np.ndarray:
     return encode_tv(params, construct_test_from_lut(params, lut))
 
 
-@lru_cache(maxsize=None)
 def identity_test_vector(params: TfheParams) -> np.ndarray:
     """Encoded identity LUT (src/test_vector.rs:23-35)."""
     lut = list(range(1 << params.log_p))

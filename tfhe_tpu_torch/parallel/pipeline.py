@@ -23,27 +23,24 @@ import torch
 
 from tfhe_tpu_torch.models import lwe as mlwe
 from tfhe_tpu_torch.models import test_vector as mtv
-from tfhe_tpu_torch.models.bootstrap import _init_acc, rotate_chunk, sample_extract0
+from tfhe_tpu_torch.models.bootstrap import (
+    CHUNK_IMPLS, IMPLS, _init_acc, rotate_chunk, sample_extract0,
+)
 from tfhe_tpu_torch.models.keys import ServerKey
 from tfhe_tpu_torch.models.keyswitch import key_switch
-from tfhe_tpu_torch.ops.torus import switch_modulus, to_torch_u32, u32
+from tfhe_tpu_torch.ops.torus import switch_modulus, u32
 from tfhe_tpu_torch.parallel.mesh import STAGE_AXIS, Mesh, local_batch
 from tfhe_tpu_torch.parallel.traffic import CollectiveRecorder
 from tfhe_tpu_torch.params import TfheParams
 
 #: the per-stage rotation impls (``rotate_chunk``'s)
-PIPELINE_IMPLS = ("conv", "matmul", "pallas", "ntt")
+PIPELINE_IMPLS = CHUNK_IMPLS
 
 
 def stage_key(sk: ServerKey, impl: str, stage: int, n_stages: int) -> torch.Tensor:
-    """The key of stage ``stage``'s steps, copied: ``bk_u32`` rows for
-    'conv' and 'matmul', ``bk_lm`` for 'pallas', ``bk_ntt`` for 'ntt'."""
-    if impl == "ntt":
-        if sk.bk_ntt is None:
-            raise ValueError("impl='ntt' needs the NTT key form: with_ntt_key(server_key)")
-        bk = sk.bk_ntt
-    else:
-        bk = sk.bk_lm if impl == "pallas" else sk.bk_u32
+    """The key of stage ``stage``'s steps, copied from the field ``impl``
+    reads (``IMPLS[impl].key``)."""
+    bk = sk.form(IMPLS[impl].key)
     chunk = bk.shape[0] // n_stages
     return bk[stage * chunk:(stage + 1) * chunk].clone()
 
@@ -111,7 +108,7 @@ def make_pipelined_gate(mesh: Mesh, params: TfheParams, gate: str, impl: str = "
         raise ValueError(f"stage={n_stages} does not divide the n={params.lwe_dimension} "
                          "rotation steps")
     recorder = CollectiveRecorder()
-    tv = to_torch_u32(mtv.gate_test_vector(params, gate), mesh.device)
+    tv = mtv.on_device(params, mesh.device, "gate", gate)
     held: dict = {}  # the server key last seen and this stage's slice of it
 
     def call(ct0, ct1, sk: ServerKey) -> torch.Tensor:

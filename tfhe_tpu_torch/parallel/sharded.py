@@ -40,7 +40,7 @@ from tfhe_tpu_torch.models import boolean
 from tfhe_tpu_torch.models import glwe as mglwe
 from tfhe_tpu_torch.models import lwe as mlwe
 from tfhe_tpu_torch.models import test_vector as mtv
-from tfhe_tpu_torch.models.bootstrap import VALID_IMPLS, _init_acc, sample_extract0
+from tfhe_tpu_torch.models.bootstrap import IMPLS, VALID_IMPLS, _init_acc, sample_extract0
 from tfhe_tpu_torch.models.ggsw import EP_CONTRACTIONS
 from tfhe_tpu_torch.models.keys import ServerKey
 from tfhe_tpu_torch.ops import ntt
@@ -57,7 +57,6 @@ from tfhe_tpu_torch.ops.torus import (
     combine_limb_accs,
     int_matmul,
     switch_modulus,
-    to_torch_u32,
     u32,
 )
 from tfhe_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, local_batch, plan_key_placement
@@ -185,18 +184,19 @@ def _gate_local(params: TfheParams, impl: str, axis: ModelAxis, tv_encoded, ct0,
     return _key_switch_local(params, sample_extract0(acc), key.ksk_mat, axis)
 
 
+#: the dim of each key field that ``model`` cuts: the GGSW rows, or the NTT bins
+_SHARD_DIM = {"bk_u32": 1, "bk_lm": 1, "bk_ntt": 3}
+
+
 def shard_server_key(sk: ServerKey, impl: str, axis: ModelAxis) -> KeyShard:
     """This rank's share of ``sk`` for ``impl``: the rows (bins for 'ntt')
     of its ``model`` coordinate, copied once.  'coeffs' keeps the whole BK
     and shards only the KSK."""
-    if impl == "ntt":
-        if sk.bk_ntt is None:
-            raise ValueError("impl='ntt' needs the NTT key form: with_ntt_key(server_key)")
-        bk = _rows(sk.bk_ntt, 3, axis)
-    elif impl == "coeffs":
+    if impl == "coeffs":
         bk = sk.bk_u32
     else:
-        bk = _rows(sk.bk_lm if impl == "pallas" else sk.bk_u32, 1, axis)
+        field = IMPLS[impl].key
+        bk = _rows(sk.form(field), _SHARD_DIM[field], axis)
     return KeyShard(bk=bk.contiguous(), ksk_mat=_rows(sk.ksk_mat, 0, axis).contiguous())
 
 
@@ -267,7 +267,7 @@ def make_sharded_gate(mesh: Mesh, params: TfheParams, gate: str, impl: str = "co
                          f"axis: {SHARDED_IMPLS}")
     _check_divisible(params, impl, model_n)
     axis = ModelAxis(mesh.get_group(MODEL_AXIS), mesh.index(MODEL_AXIS), model_n, recorder)
-    tv = to_torch_u32(mtv.gate_test_vector(params, gate), mesh.device)
+    tv = mtv.on_device(params, mesh.device, "gate", gate)
     held: dict = {}  # the server key last seen and this rank's share of it
 
     def call(ct0, ct1, sk: ServerKey) -> torch.Tensor:
