@@ -3,6 +3,7 @@
 
     python3 scripts/measure_torch.py     # from the root of the checkout
     python3 scripts/measure_torch.py C   # Kernel C's part alone
+    python3 scripts/measure_torch.py D   # Kernel D's part alone
 
 At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
 
@@ -29,11 +30,12 @@ At default_128 (seeded keygen, random bit pairs) it measures, with CUDA events:
     m16n8k32 per clock per busy SM; its mma count, the key bytes a CTA
     takes in and the key bytes read from L2 per gate, counted by a copy
     of the kernel (``kernel_d_counted``); the SM clocks of each
-    phase of its step (``kernel_d_phase_clocks``); and where its time goes
-    (``kernel_d_cuts``: copies with the forward, the contraction or the
-    inverse alone, the key loads alone, no key loads, no exchange between
-    the CTAs of a cluster or no reductions, ``CUTS_D``, and the picked plan
-    against others, ``PLANS_D``, a cluster of 1 among them);
+    phase of its step (``kernel_d_phase_clocks``) at B=1024 and at B=64;
+    and where its time goes (``kernel_d_cuts``: copies with the forward,
+    the contraction or the inverse alone, the key loads alone, no key
+    loads, no exchange between the CTAs of a cluster or no reductions,
+    ``CUTS_D``, at B=64 and at B=1024, and there the picked plan against
+    others, ``PLANS_D``, a cluster of 1 among them; ``kernel_d_report``);
   * Kernels E, F and G (``blind_rotate_fused_pipe``, ``_wide_pipe``,
     ``_cols``) alone at B = 8 .. 2048 and Kernel B at key_limbs=3 at
     B=1024, with their launch plans;
@@ -139,16 +141,16 @@ EXACT_CUTS = {("E", "2 producer warps"), ("E", "8 producer warps")}
 _D_NO_FORWARD = (
     ("  const int gid = lane >> 2, tig = lane & 3, RN2p = s.RN2p, ntl = S * RN2p / 8;",
      "  return;\n  const int gid = lane >> 2, tig = lane & 3, RN2p = s.RN2p, ntl = S * RN2p / 8;"),
-    ("        exchange(dh_out, s.blk_dh,", "        if (false) exchange(dh_out, s.blk_dh,"))
+    ("        exchange(dh_out, NP * s.blk_dh,", "        if (false) exchange(dh_out, NP * s.blk_dh,"))
 _D_NO_CONTRACT = (
     ("  const int gid = lane >> 2, tig = lane & 3, RN2 = s.RN2, RN2p = s.RN2p, CLN2 = s.CLN2;",
      "  return;\n  const int gid = lane >> 2, tig = lane & 3, RN2 = s.RN2, RN2p = s.RN2p, "
      "CLN2 = s.CLN2;"),
-    ("        exchange(ch_out, s.blk_ch,", "        if (false) exchange(ch_out, s.blk_ch,"))
+    ("        exchange(ch_out, NP * s.blk_ch,", "        if (false) exchange(ch_out, NP * s.blk_ch,"))
 _D_NO_INVERSE = (("  const int gid = lane >> 2, tig = lane & 3;\n",
                   "  return;\n  const int gid = lane >> 2, tig = lane & 3;\n"),)
 _D_NO_KEYS = (("    if (lane == 0) produce(s, bk, keys, full, consumed);", ""),
-              ("            mbar_wait(full + b, parity);", ""))
+              ("              mbar_wait(full + kb, kpar);\n", ""))
 _D_NO_EXCHANGE = (("      fence_proxy_async();  // the consumers' writes of `sent`",
                    "      return;\n      fence_proxy_async();  // the consumers' writes of `sent`"),)
 _D_NO_REDUCE = (("  int r = x % P;  // in (-P, P), with the sign of x",
@@ -160,15 +162,15 @@ CUTS_D = {"forward only": _D_NO_CONTRACT + _D_NO_INVERSE,
           "no key loads": _D_NO_KEYS,
           "no exchange": _D_NO_EXCHANGE,
           "no reductions": _D_NO_REDUCE}
-#: Kernel D's plans timed beside the picked one: (samples per CTA, split);
-#: (2, 1) is a cluster of 1 (every CTA takes in the whole key)
-PLANS_D = ((2, 1), (2, 4), (1, 8))
+#: Kernel D's plans timed beside the picked one at B=1024, (1, 8): (samples
+#: per CTA, split); (1, 1) is a cluster of 1 (every CTA takes in the whole
+#: key), and 2 samples per CTA take their key slices in chunks of m-tiles
+PLANS_D = ((1, 1), (1, 4), (2, 8))
 #: Kernel D with phase timers: thread 0 of CTA 0 sums clock64() over each
-#: phase of a step (PHASES_D, in order) and writes the sums over its first
-#: outputs, which are then wrong
-PHASES_D = ("step start", "digits", "forward p1", "Dh exchange p1", "contraction p1",
-            "Ch exchange p1", "inverse p1", "forward p2", "Dh exchange p2", "contraction p2",
-            "Ch exchange p2", "inverse p2")
+#: phase of a step (PHASES_D, in order; with one CRT prime a pass, both passes) and
+#: writes the sums over its first outputs, which are then wrong
+PHASES_D = ("step start", "digits", "forward", "Dh exchange", "contraction", "Ch exchange",
+            "inverse + lift")
 
 
 def _before(anchor: str, text: str) -> tuple[str, str]:
@@ -181,7 +183,7 @@ def _after(anchor: str, text: str) -> tuple[str, str]:
 
 _D_TIMERS = (
     _after("    int kb = 0, kpar = 0;  // the key stage to consume next, and its phase parity\n",
-           "    long long clocks[12] = {}, last = clock64();\n"
+           "    long long clocks[7] = {}, last = clock64();\n"
            "    auto tick = [&](int phase) {\n"
            "      if (tid == 0) {\n"
            "        const long long now = clock64();\n"
@@ -190,16 +192,16 @@ _D_TIMERS = (
            "      }\n"
            "    };\n"),
     _before("      // digits: rows (sample, r*N2 + j1)", "      tick(0);\n"),
-    _before("#pragma unroll\n      for (int prime = 0;", "      tick(1);\n"),
-    _before("        exchange(dh_out, s.blk_dh,", "        tick(2 + 5 * prime);\n"),
-    _before("        uint32_t ph[kMaxOwned][kMaxNt] = {}", "        tick(3 + 5 * prime);\n"),
-    _before("        exchange(ch_out, s.blk_ch,", "        tick(4 + 5 * prime);\n"),
-    _before("        if (prime == 0)\n          inverse<", "        tick(5 + 5 * prime);\n"),
+    _before("        forward<S, NP, P0>(s, frags, dig, dh_out, warp, lane);", "        tick(1);\n"),
+    _before("        exchange(dh_out, NP * s.blk_dh,", "        tick(2);\n"),
+    _before("        uint32_t ph[NP][kMaxOwned]", "        tick(3);\n"),
+    _before("        exchange(ch_out, NP * s.blk_ch,", "        tick(4);\n"),
+    _before("        inverse<S, L, NP, P0>(s, frags, ch, r1, acc, warp, lane);", "        tick(5);\n"),
     _after("        if (tid == 0) bulk_commit_wait_read();\n        bar_consumers();\n",
-           "        tick(6 + 5 * prime);\n"),
+           "        tick(6);\n"),
     _after("      out[static_cast<size_t>(b0) * CN + idx] = acc[idx];\n",
            "    if (tid == 0 && blockIdx.x == 0)\n"
-           "      for (int k = 0; k < 12; ++k) {\n"
+           "      for (int k = 0; k < 7; ++k) {\n"
            "        out[2 * k] = static_cast<uint32_t>(clocks[k]);\n"
            "        out[2 * k + 1] = static_cast<uint32_t>(clocks[k] >> 32);\n"
            "      }\n"))
@@ -553,6 +555,58 @@ def kernel_d_cuts(nttk, p, acc0, bk_lhs, a_hat, plans) -> dict:
     return res
 
 
+def kernel_d_report(nttk, p, sk, rotation_inputs) -> dict:
+    """Kernel D (the block-NTT whole scan) alone over the batches, clocked,
+    counted, its phases and its cuts (at B=64, the plan of the
+    ``d128.gates.b64.nttf`` cell, and at B=1024)."""
+    res = {}
+    for b in KERNEL_B_BATCHES:
+        acc0, a_hat = rotation_inputs(b)
+        t = event_rounds(lambda: nttk.blind_rotate_nttf(p, acc0, sk.bk_ntt_lhs, a_hat),
+                         3 if b >= 256 else 5)
+        res[f"kernelD_B{b}_ms"] = t
+        res[f"kernelD_B{b}_plan"] = dict(nttk.last_plan)
+        log(f"Kernel D B={b}: ms {t}, plan {nttk.last_plan}")
+    acc0, a_hat = rotation_inputs(1024)
+    ms, samples = sampled_clocks(
+        lambda: nttk.blind_rotate_nttf(p, acc0, sk.bk_ntt_lhs, a_hat), 3)
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no sample inside the Kernel D window")
+    clocks = sorted(x[0] for x in samples)
+    # one CTA per SM holds samples_per_cta samples for all steps; B=1024 runs
+    # as waves of what the card holds at once.  The mma and key byte counts
+    # are those the counting copy of the kernel took on 4 steps of the key.
+    plan = dict(nttk.last_plan)
+    counts = kernel_d_counted(nttk, p, acc0, sk.bk_ntt_lhs[:4], a_hat[:4])
+    counted_plan = counts.pop("plan")
+    if any(counted_plan[k] != plan[k] for k in ("samples_per_cta", "split", "ctas")):
+        raise RuntimeError("Kernel D's counting copy picked another plan")
+    at_once = plan["max_active_clusters"] * plan["split"]
+    waves = -(-plan["ctas"] // at_once)
+    per_sm = counts["mma_m16n8k32_per_cta_step"] * p.n * waves / (ms / 1e3)
+    res["kernelD_B1024_clocked"] = {
+        "ms_per_call": ms, "samples_mhz_w": samples, "sm_mhz_min": clocks[0],
+        "sm_mhz_max": clocks[-1], "plan": plan, "waves": waves, "counted": counts,
+        "l2_key_bytes_per_gate": counts["l2_key_bytes_per_step"] * p.n,
+        "mma_m16n8k32_per_s_per_busy_sm": per_sm,
+        "clocks_per_mma_per_subpartition_at_max_and_min_clock": [
+            c * 1e6 * SUBPARTITIONS_PER_SM / per_sm for c in (clocks[-1], clocks[0])]}
+    log(f"Kernel D B=1024 under nvidia-smi: {ms} ms per call, {len(samples)} samples, "
+        f"SM clock {clocks[0]}-{clocks[-1]} MHz, plan {plan}, {waves} waves, {counts}, "
+        f"{per_sm:.6e} m16n8k32/s per busy SM")
+    # where Kernel D's time goes: its phases' clocks, and the cuts and plans
+    for b in (1024, 64):
+        acc_b, a_b = rotation_inputs(b)
+        res[f"kernelD_B{b}_phase_clocks_per_step"] = kernel_d_phase_clocks(
+            nttk, p, acc_b, sk.bk_ntt_lhs, a_b)
+        log(f"Kernel D B={b} SM clocks per step by phase: "
+            f"{res[f'kernelD_B{b}_phase_clocks_per_step']}")
+    acc_b, a_b = rotation_inputs(64)
+    res["kernelD_B64_cuts_ms"] = kernel_d_cuts(nttk, p, acc_b, sk.bk_ntt_lhs, a_b, ())
+    res["kernelD_B1024_cuts_ms"] = kernel_d_cuts(nttk, p, acc0, sk.bk_ntt_lhs, a_hat, PLANS_D)
+    return res
+
+
 def kernel_c_inputs(p, sk, a_hat, v):
     """Kernel C's key and exponents for a gate's mask a_hat: V=1 (fusedl) or
     V=3 (bmmpl, the BMMP exponents of each pair of steps)."""
@@ -761,7 +815,7 @@ def main() -> int:
     p = tfhe.get_params("default_128")
     ck, sk = tfhe.keygen(p, torch.Generator().manual_seed(0), device=dev, bmmp=True)
     sk = tfhe.with_latency_key(sk)
-    only_c = sys.argv[1:] == ["C"]
+    only_c, only_d = sys.argv[1:] == ["C"], sys.argv[1:] == ["D"]
     res_keys = {}
     for name, attach in (() if only_c else (("with_ntt_key", tfhe.with_ntt_key),
                                             ("with_ntt_lhs_key", tfhe.with_ntt_lhs_key))):
@@ -789,6 +843,9 @@ def main() -> int:
 
     if only_c:
         res.update(kernel_c_report(latk, p, sk, rotation_inputs))
+        return write(res)
+    if only_d:
+        res.update(kernel_d_report(nttk, p, sk, rotation_inputs))
         return write(res)
     for b in KERNEL_B_BATCHES:
         acc0, a_hat = rotation_inputs(b)
@@ -828,49 +885,7 @@ def main() -> int:
 
     res.update(kernel_c_report(latk, p, sk, rotation_inputs))
 
-    # Kernel D: the block-NTT whole scan over the same batches
-    for b in KERNEL_B_BATCHES:
-        acc0, a_hat = rotation_inputs(b)
-        t = event_rounds(lambda: nttk.blind_rotate_nttf(p, acc0, sk.bk_ntt_lhs, a_hat),
-                         3 if b >= 256 else 5)
-        res[f"kernelD_B{b}_ms"] = t
-        res[f"kernelD_B{b}_plan"] = dict(nttk.last_plan)
-        log(f"Kernel D B={b}: ms {t}, plan {nttk.last_plan}")
-    acc0, a_hat = rotation_inputs(1024)
-    ms, samples = sampled_clocks(
-        lambda: nttk.blind_rotate_nttf(p, acc0, sk.bk_ntt_lhs, a_hat), 3)
-    if not samples:
-        raise RuntimeError("nvidia-smi gave no sample inside the Kernel D window")
-    clocks = sorted(x[0] for x in samples)
-    # one CTA per SM holds samples_per_cta samples for all steps; B=1024 runs
-    # as waves of what the card holds at once.  The mma and key byte counts
-    # are those the counting copy of the kernel took on 4 steps of the key.
-    plan = dict(nttk.last_plan)
-    counts = kernel_d_counted(nttk, p, acc0, sk.bk_ntt_lhs[:4], a_hat[:4])
-    counted_plan = counts.pop("plan")
-    if any(counted_plan[k] != plan[k] for k in ("samples_per_cta", "split", "ctas")):
-        raise RuntimeError("Kernel D's counting copy picked another plan")
-    at_once = plan["max_active_clusters"] * plan["split"]
-    waves = -(-plan["ctas"] // at_once)
-    per_sm = counts["mma_m16n8k32_per_cta_step"] * p.n * waves / (ms / 1e3)
-    res["kernelD_B1024_clocked"] = {
-        "ms_per_call": ms, "samples_mhz_w": samples, "sm_mhz_min": clocks[0],
-        "sm_mhz_max": clocks[-1], "plan": plan, "waves": waves, "counted": counts,
-        "l2_key_bytes_per_gate": counts["l2_key_bytes_per_step"] * p.n,
-        "mma_m16n8k32_per_s_per_busy_sm": per_sm,
-        "clocks_per_mma_per_subpartition_at_max_and_min_clock": [
-            c * 1e6 * SUBPARTITIONS_PER_SM / per_sm for c in (clocks[-1], clocks[0])]}
-    log(f"Kernel D B=1024 under nvidia-smi: {ms} ms per call, {len(samples)} samples, "
-        f"SM clock {clocks[0]}-{clocks[-1]} MHz, plan {plan}, {waves} waves, {counts}, "
-        f"{per_sm:.6e} m16n8k32/s per busy SM")
-    # where Kernel D's time goes: its phases' clocks, and the cuts and plans
-    for b in (1024, 64):
-        acc_b, a_b = rotation_inputs(b)
-        res[f"kernelD_B{b}_phase_clocks_per_step"] = kernel_d_phase_clocks(
-            nttk, p, acc_b, sk.bk_ntt_lhs, a_b)
-        log(f"Kernel D B={b} SM clocks per step by phase: "
-            f"{res[f'kernelD_B{b}_phase_clocks_per_step']}")
-    res["kernelD_B1024_cuts_ms"] = kernel_d_cuts(nttk, p, acc0, sk.bk_ntt_lhs, a_hat, PLANS_D)
+    res.update(kernel_d_report(nttk, p, sk, rotation_inputs))
 
     # Kernels E, F and G over the same batches, and Kernel B at key_limbs=3
     for b in KERNEL_B_BATCHES:

@@ -695,19 +695,25 @@ NTTF_PLANS = [(1, 1), (1, 2), (1, 4), (1, 8), (2, 1), (2, 2), (2, 4), (2, 8)]
     ("test_insecure", 64, None, (0, 0), "random"),
     ("test_insecure", 256, None, (0, 0), "random"),
     ("test_insecure", 1024, 2, (0, 0), "random"),
-    # large_2048: 4 key limbs, key stages of chunks of rows
+    # large_2048: 4 key limbs, key stages of chunks of rows, one prime a pass
     ("large_2048", 3, 2, (0, 0), "random"), ("large_2048", 5, 2, (1, 2), "random"),
     # every samples-per-CTA value with every split, each at a batch whose
-    # last cluster is partly empty (4 samples per CTA fit only nano's shared
-    # memory)
+    # last cluster is partly empty (2 samples per CTA at N=512 take their
+    # key slices in chunks of m-tiles; 4 samples per CTA fit only nano's
+    # shared memory)
     *[("test_insecure", spc * split + 1, 2, (spc, split), "random")
       for spc, split in NTTF_PLANS],
     *[("nano", 4 * split + 1, None, (4, split), "random") for split in (1, 2, 4)],
     # the largest digits and key bytes: the s32 sums and reductions at their bounds
-    ("test_insecure", 9, 2, (2, 4), "worst"), ("large_2048", 2, 2, (1, 1), "worst")])
+    ("test_insecure", 9, 2, (2, 4), "worst"), ("large_2048", 2, 2, (1, 1), "worst"),
+    # default_128's B=64 plan over 16 steps: every exchange block and key
+    # stage reused many times over
+    ("test_insecure", 64, 16, (1, 8), "random"), ("test_insecure", 64, 16, (1, 8), "worst")])
 def test_nttf_kernel_matches_twin_on_card(cuda_device, name, batch, steps, plan, kind):
     """Kernel D against its twin, one launch each, under the plans it picks
-    and every plan instance forced."""
+    and every plan instance forced.  A step makes one Dh and one Ch exchange
+    of both primes, and at large_2048, whose blocks of both primes do not
+    fit the shared memory, two of each, one prime a pass."""
     p = get_params(name)
     acc0, bk_lhs, a_hat = nttf_inputs(p, batch, 80 + batch, cuda_device, steps, kind)
     before = nttk.KERNEL.launches
@@ -717,6 +723,7 @@ def test_nttf_kernel_matches_twin_on_card(cuda_device, name, batch, steps, plan,
     got_plan = tuple(nttk.last_plan[k] for k in ("samples_per_cta", "split"))
     assert plan == (0, 0) or got_plan == plan
     assert nttk.last_plan["ctas"] % nttk.last_plan["split"] == 0
+    assert nttk.last_plan["exchanges_per_step"] == (4 if name == "large_2048" else 2)
     assert torch.equal(got, nttk.blind_rotate_nttf_ref(p, acc0, bk_lhs, a_hat))
 
 

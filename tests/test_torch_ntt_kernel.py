@@ -3,10 +3,13 @@
 ``csrc/ntt_kernel.cu`` runs only on the card.  These tests replay its index
 arithmetic lane by lane in numpy -- the ldmatrix row addresses, the
 m16n8k32/m16n8k16 fragment layouts, the swizzled digit and Ch rows, the Dh
-blocks and the CTAs of a cluster row they are written to, the 4-bin
-packing of Ch, the inverse's triple groups, the key stages and their
-chunks -- and hold one cluster row's result against the plain twin
-(``blind_rotate_nttf_ref``) bit for bit.  Every mma's sums are checked to
+blocks of a pass's CRT primes and the CTAs of a cluster row they are
+written to, the one Dh and one Ch exchange a pass (one pass of both primes
+a step, or two of one prime each), the 4-bin packing of Ch, the inverse's
+triple groups and its CRT lift (in registers, or from the first pass's
+residues), the key stages (one prime's slice each, taken a pass's primes
+at a time) and their chunks -- and hold one cluster row's result against
+the plain twin (``blind_rotate_nttf_ref``) bit for bit.  Every mma's sums are checked to
 stay inside int32, and the bytes the kernel reads but must not use (padding
 rows, key-stage slack) are filled with random bytes.  The card tests in
 ``tests/test_torch_cuda.py`` hold the kernel itself against the twin.
@@ -79,6 +82,7 @@ class Shape:
     levels: int
     L: int
     mcs: int
+    np: int = 2  # CRT primes a pass
 
     def __post_init__(self):
         self.N2 = self.N // N1
@@ -91,10 +95,10 @@ class Shape:
         self.ngroups = -(-self.T // 4)
         self.bins = N1 // self.split
         self.nt = -(-2 * self.S * self.split // 8)
-        self.blk_dh = self.bins * 2 * self.S * self.RN2p
+        self.blk_dh = self.bins * 2 * self.S * self.RN2p  # one prime's part of a block
         self.blk_ch = self.S * self.CLN2 * 2 * self.bins
-        self.dhs = self.blk_dh + 32 * self.S
-        self.chs = self.blk_ch + 64
+        self.dhs = self.np * self.blk_dh + 32 * self.S
+        self.chs = self.np * self.blk_ch + 64
 
 
 class Cta:
@@ -105,21 +109,24 @@ class Cta:
         self.dig = np.zeros(sh.S * sh.RN2p * ROW, np.int8)  # rows past RN2 stay 0
         self.dh = rng.integers(-128, 128, sh.split * sh.dhs).astype(np.int8)  # received
         self.ch = rng.integers(-128, 128, sh.split * sh.chs).astype(np.int8)
-        self.dh_out = rng.integers(-128, 128, sh.split * sh.blk_dh).astype(np.int8)  # sent
-        self.ch_out = rng.integers(-128, 128, sh.split * sh.blk_ch).astype(np.int8)
-        self.r1 = np.zeros(sh.T * sh.L * (N1 + 2), np.int64)
+        self.dh_out = rng.integers(-128, 128, sh.split * sh.np * sh.blk_dh).astype(np.int8)
+        self.ch_out = rng.integers(-128, 128, sh.split * sh.np * sh.blk_ch).astype(np.int8)
+        # the first prime's residues [T][L][N1 + 2], with one prime a pass
+        self.r1 = rng.integers(-2**15, 2**15, (sh.T, sh.L, N1 + 2)).astype(np.int16)
 
 
-def replay(p, acc0, bk_lhs, a_hat, S, split, mcs, rng):
+def replay(p, acc0, bk_lhs, a_hat, S, split, mcs, rng, np_=2):
     """One row of `split` CTAs of S samples each (acc0 holds them, zero-padded
-    to S*split) through every step, as the kernel's consumer warps compute it:
-    each CTA transforms its samples for all bins into the owners' Dh, then
-    contracts its bins for all the row's samples into the owners' Ch."""
+    to S*split) through every step, as the kernel's consumer warps compute it,
+    in passes of ``np_`` primes: each CTA transforms its samples for all bins
+    and the pass's primes into the owners' Dh, then contracts its bins for
+    all the row's samples and the pass's primes into the owners' Ch, then
+    inverts (and lifts) its own samples."""
     dp = p.pbs_decomposer
     plan = ntt.plan_for_params(p)
     k1 = p.glwe_dimension + 1
-    sh = Shape(S, split, k1, p.degree, dp.levels, plan.key_limbs, mcs)
-    N, CN, N2, RN2p, CLN2, L = sh.N, k1 * sh.N, sh.N2, sh.RN2p, sh.CLN2, sh.L
+    sh = Shape(S, split, k1, p.degree, dp.levels, plan.key_limbs, mcs, np_)
+    N, CN, CLN2 = sh.N, k1 * sh.N, sh.CLN2
     nb = acc0.shape[0]
     frags = nttk.kernel_tables(N1, "cpu").numpy().reshape(2, 2, 8, 32, 2, 16)
     acc = np.zeros((S * split, CN), np.uint32)
@@ -132,27 +139,32 @@ def replay(p, acc0, bk_lhs, a_hat, S, split, mcs, rng):
             exps = [int(ah[step, g * S + s]) & (2 * N - 1) if g * S + s < nb else 0
                     for s in range(S)]
             digits(sh, dp, cta, exps)
-        for prime, P in enumerate(ntt.PRIMES):
+        for p0 in range(0, 2, np_):
+            primes = range(p0, p0 + np_)
             for cta in ctas:
-                forward(sh, P, frags[prime, 0], cta)
-            exchange(ctas, "dh", sh.blk_dh, sh.dhs)
+                forward(sh, frags[:, 0], cta, primes)
+            exchange(ctas, "dh", np_ * sh.blk_dh, sh.dhs)
             for g, cta in enumerate(ctas):
-                ph = np.zeros((sh.MT, sh.nt, 32), np.int64)  # a thread's ph[j][nt], by m-tile
-                pl = np.zeros((sh.MT, sh.nt, 32), np.int64)
+                # a thread's ph[prime of the pass][j][nt], by m-tile
+                ph = np.zeros((np_, sh.MT, sh.nt, 32), np.int64)
+                pl = np.zeros((np_, sh.MT, sh.nt, 32), np.int64)
                 for bl in range(sh.bins):
-                    bin_ = g * sh.bins + bl
-                    sl = key[step, prime, bin_]
                     for chunk in range(sh.nchunks):
                         q0 = chunk * 8 * mcs
                         rows = min(8 * mcs, CLN2 - q0)
-                        stage = rng.integers(-128, 128, 2 * rows * sh.RN2 + 16).astype(np.int8)
-                        stage[:rows * sh.RN2] = sl[q0 * sh.RN2:(q0 + rows) * sh.RN2]
-                        stage[rows * sh.RN2:2 * rows * sh.RN2] = sl[(CLN2 + q0) * sh.RN2:
-                                                                    (CLN2 + q0 + rows) * sh.RN2]
-                        contract_stage(sh, P, stage, chunk, cta, bl, ph, pl)
-            exchange(ctas, "ch", sh.blk_ch, sh.chs)
+                        stages = []  # the chunk of the bin's slice of each prime, in turn
+                        for prime in primes:
+                            sl = key[step, prime, g * sh.bins + bl]
+                            stage = rng.integers(-128, 128,
+                                                 2 * rows * sh.RN2 + 16).astype(np.int8)
+                            stage[:rows * sh.RN2] = sl[q0 * sh.RN2:(q0 + rows) * sh.RN2]
+                            stage[rows * sh.RN2:2 * rows * sh.RN2] = \
+                                sl[(CLN2 + q0) * sh.RN2:(CLN2 + q0 + rows) * sh.RN2]
+                            stages.append(stage)
+                        contract_stage(sh, stages, chunk, cta, bl, ph, pl, primes)
+            exchange(ctas, "ch", np_ * sh.blk_ch, sh.chs)
             for cta in ctas:
-                inverse(sh, P, frags[prime, 1], cta, prime, plan.key_bits, k1)
+                inverse(sh, frags[:, 1], cta, plan.key_bits, k1, primes)
     return to_torch_u32(acc[:nb].reshape(nb, k1, N))
 
 
@@ -188,38 +200,44 @@ def exchange(ctas, name, blk, stride):
                 getattr(sender, name + "_out")[o * blk:(o + 1) * blk]
 
 
-def forward(sh, P, frag, cta):
-    """``forward``: this CTA's samples, all bins, into its outgoing Dh."""
+def forward(sh, frag, cta, primes):
+    """``forward``: this CTA's samples, all bins and the pass's ``primes``
+    (``frag`` holds each prime's w_fwd fragments), into its outgoing Dh."""
     RN2p, ntl = sh.RN2p, sh.S * sh.RN2p // 8
     for un in range(8 * ntl):
         g, nt = divmod(un, ntl)
-        fa = frag[g].astype(np.int64)  # [32, 2 k-steps, 16 bytes]
         row0 = nt * 8
-        b = ldm(cta.dig, swz(row0 + (LANE & 7), LANE >> 3), 4)
-        c = np.zeros((32, 4), np.int64)
-        mma(c, fa[:, 0].reshape(32, 4, 4), b[:, 0:2])
-        mma(c, fa[:, 1].reshape(32, 4, 4), b[:, 2:4])
-        (h0, l0), (h1, l1) = (split2(center(c[:, k] * 256 + c[:, k + 2], P)) for k in (0, 1))
-        hi = (h0 & 0xFF) | (h1 & 0xFF) << 8
-        lo = (l0 & 0xFF) | (l1 & 0xFF) << 8
-        # lanes tig, tig^1 trade halves (__shfl_xor_sync): the even one stores
-        # the hi bytes of their 4 columns, the odd one the lo bytes
-        give = np.where(TIG & 1, hi, lo)
-        got = give[LANE ^ 1]
-        word = np.where(TIG & 1, got | lo << 16, hi | got << 16)
-        sb = row0 // RN2p
-        col = row0 - sb * RN2p + 4 * (TIG >> 1)
-        at = ((g * GROUP + GID) * 2 * sh.S + 2 * sb + (TIG & 1)) * RN2p + col
-        for ln in range(32):
-            cta.dh_out[at[ln]:at[ln] + 4] = np.frombuffer(int(word[ln]).to_bytes(4, "little"),
-                                                          np.int8)
+        b = ldm(cta.dig, swz(row0 + (LANE & 7), LANE >> 3), 4)  # the same for every prime
+        for j, prime in enumerate(primes):
+            P = ntt.PRIMES[prime]
+            fa = frag[prime, g].astype(np.int64)  # [32, 2 k-steps, 16 bytes]
+            c = np.zeros((32, 4), np.int64)
+            mma(c, fa[:, 0].reshape(32, 4, 4), b[:, 0:2])
+            mma(c, fa[:, 1].reshape(32, 4, 4), b[:, 2:4])
+            (h0, l0), (h1, l1) = (split2(center(c[:, k] * 256 + c[:, k + 2], P)) for k in (0, 1))
+            hi = (h0 & 0xFF) | (h1 & 0xFF) << 8
+            lo = (l0 & 0xFF) | (l1 & 0xFF) << 8
+            # lanes tig, tig^1 trade halves (__shfl_xor_sync): the even one
+            # stores the hi bytes of their 4 columns, the odd one the lo bytes
+            give = np.where(TIG & 1, hi, lo)
+            got = give[LANE ^ 1]
+            word = np.where(TIG & 1, got | lo << 16, hi | got << 16)
+            sb = row0 // RN2p
+            col = row0 - sb * RN2p + 4 * (TIG >> 1)
+            # [owner][own bin][prime][sample, plane]: the owners' blocks follow one another
+            at = ((((g * GROUP + GID) * sh.np + j) * sh.S + sb) * 2 + (TIG & 1)) * RN2p + col
+            for ln in range(32):
+                cta.dh_out[at[ln]:at[ln] + 4] = np.frombuffer(
+                    int(word[ln]).to_bytes(4, "little"), np.int8)
 
 
-def inverse(sh, P, frag, cta, prime, key_bits, k1):
-    """``inverse``: this CTA's samples, all bins, from its own Ch."""
+def inverse(sh, frag, cta, key_bits, k1, primes):
+    """``inverse``: this CTA's samples, all bins, from its own Ch of the
+    pass's ``primes`` (``frag`` holds each prime's w_inv fragments): with
+    both, lifted by CRT in registers; with one, the first prime's residues
+    go to ``cta.r1`` and the second prime lifts them."""
     N2, CLN2, L = sh.N2, sh.CLN2, sh.L
     inv_p1 = pow(P1, P2 - 2, P2)
-    inv = frag.astype(np.int64)
     bins = sh.bins
     for un in range(8 * sh.ngroups):
         mt, u = divmod(un, sh.ngroups)
@@ -232,36 +250,49 @@ def inverse(sh, P, frag, cta, prime, key_bits, k1):
         delta = np.zeros(32, np.int64)
         for lam in range(L):
             off = (((cl * L + lam) * N2 + jl) * 2 * bins)[:, None]
-            b = cta.ch[(col + off)[..., None] + np.arange(4)].astype(np.int64)  # [32, 4, 4]
-            c = np.zeros((32, 4), np.int64)
-            mma(c, inv[mt, :, 0].reshape(32, 4, 4), b[:, 0:2])
-            mma(c, inv[mt, :, 1].reshape(32, 4, 4), b[:, 2:4])
-            res = center(center(c[:, 0] * 256 + c[:, 1] + c[:, 2], P) * 256 + c[:, 3], P)
-            at = (to * L + lam) * (N1 + 2) + i
-            if prime == 0:
-                cta.r1[at[ok]] = res[ok]
+            res = []
+            for j, prime in enumerate(primes):
+                P = ntt.PRIMES[prime]
+                inv = frag[prime].astype(np.int64)
+                at = col + off + j * sh.blk_ch
+                b = cta.ch[at[..., None] + np.arange(4)].astype(np.int64)  # [32, 4, 4]
+                c = np.zeros((32, 4), np.int64)
+                mma(c, inv[mt, :, 0].reshape(32, 4, 4), b[:, 0:2])
+                mma(c, inv[mt, :, 1].reshape(32, 4, 4), b[:, 2:4])
+                res.append(center(center(c[:, 0] * 256 + c[:, 1] + c[:, 2], P) * 256 + c[:, 3],
+                                  P))
+            if len(res) == 2:
+                r1, r2 = res
+            elif primes[0] == 0:
+                for ln in np.nonzero(ok)[0]:
+                    cta.r1[to[ln], lam, i[ln]] = res[0][ln]
+                continue
             else:
-                a = cta.r1[np.where(ok, at, 0)]
-                assert np.abs((res - a) * inv_p1).max() < 2**31
-                sv = (a + P1 * center((res - a) * inv_p1, P2)) & 0xFFFFFFFF
-                delta += np.where(ok, (sv << (key_bits * lam)) & 0xFFFFFFFF, 0)
-        if prime == 1:
-            for ln in np.nonzero(ok)[0]:
-                t = int(to[ln])
-                jo, co, so = t % N2, (t // N2) % k1, t // (N2 * k1)
-                w = co * sh.N + int(i[ln]) * N2 + jo
-                cta.acc[so, w] = (int(cta.acc[so, w]) + int(delta[ln])) & 0xFFFFFFFF
+                r1 = np.where(ok, cta.r1[np.minimum(to, sh.T - 1), lam, i], 0).astype(np.int64)
+                r2 = res[0]
+            assert np.abs((r2 - r1) * inv_p1).max() < 2**31
+            sv = (r1 + P1 * center((r2 - r1) * inv_p1, P2)) & 0xFFFFFFFF
+            delta += (sv << (key_bits * lam)) & 0xFFFFFFFF
+        if len(primes) == 1 and primes[0] == 0:
+            continue
+        for ln in np.nonzero(ok)[0]:
+            t = int(to[ln])
+            jo, co, so = t % N2, (t // N2) % k1, t // (N2 * k1)
+            w = co * sh.N + int(i[ln]) * N2 + jo
+            cta.acc[so, w] = (int(cta.acc[so, w]) + int(delta[ln])) & 0xFFFFFFFF
 
 
-def contract_stage(sh, P, stage, chunk, cta, bl, ph, pl):
-    """``contract`` of one key stage by every warp: this CTA's bin bl for
-    all the row's samples, unit (m-tile, n-tile) by unit, into its outgoing
-    Ch."""
+def contract_stage(sh, stages, chunk, cta, bl, ph, pl, primes):
+    """``contract`` of a pass's key stages (the chunk of bin bl's slice of
+    each of its ``primes``) by every warp: this CTA's bin bl for all the
+    row's samples and those primes, unit (m-tile, n-tile) by unit, into its
+    outgoing Ch."""
     RN2, CLN2, S = sh.RN2, sh.CLN2, sh.S
     q0 = chunk * 8 * sh.mcs
     rows = min(8 * sh.mcs, CLN2 - q0)
     use_ldm = RN2 % 16 == 0
     nk32, tail, slots = sh.RN2p // 32, sh.RN2p & 16, S * sh.split
+    dhp = 2 * S * sh.RN2p  # a prime's Dh rows follow the one's before
     for u in range(sh.MT * sh.nt):  # the units; consumer warp w takes m-tiles w, w + 9, ...
         mt, nt = u % sh.MT, u // sh.MT
         base = mt * 8 - q0
@@ -273,32 +304,41 @@ def contract_stage(sh, P, stage, chunk, cta, bl, ph, pl):
         ahi, alo = gq * RN2 + 4 * TIG, (rows + gq) * RN2 + 4 * TIG
         n = 8 * nt + (LANE & 7)
         slot = np.where(n < 2 * slots, n >> 1, 0)
-        brow = (slot // S) * sh.dhs + (bl * 2 * S + 2 * (slot % S) + (n & 1)) * sh.RN2p
-
-        def plain(k0, nregs):
-            offs = [ahi + k0, alo + k0, ahi + k0 + 16, alo + k0 + 16][:nregs]
-            return np.stack([stage[o[:, None] + np.arange(4)] for o in offs], 1).astype(np.int64)
-
-        c = np.zeros((32, 4), np.int64)
-        for ks in range(nk32):
-            k0 = 32 * ks
-            a = ldm(stage, arow + k0, 4) if use_ldm else plain(k0, 4)
-            mma(c, a, ldm(cta.dh, brow + k0 + 16 * ((LANE >> 3) & 1), 2))
-        if tail:
-            k0 = 32 * nk32
-            a = ldm(stage, arow + k0, 2) if use_ldm else plain(k0, 2)
-            mma(c, a, ldm(cta.dh, brow + k0, 1))
-        hi, lo = split2(center(center(c[:, 0] * 256 + c[:, 1] + c[:, 2], P) * 256 + c[:, 3], P))
+        brow = ((slot // S) * sh.dhs
+                + (bl * 2 * sh.np * S + 2 * (slot % S) + (n & 1)) * sh.RN2p)
         sh8, q, slot = 8 * (bl & 3), mt * 8 + GID, 4 * nt + TIG
-        ph[mt, nt] = (ph[mt, nt] if bl & 3 else 0) | ((hi & 0xFF) << sh8)
-        pl[mt, nt] = (pl[mt, nt] if bl & 3 else 0) | ((lo & 0xFF) << sh8)
-        if bl & 3 != 3:
-            continue
-        for ln in np.nonzero((slot < slots) & (q < CLN2))[0]:
-            owner, s_o = divmod(int(slot[ln]), S)
-            at = owner * sh.blk_ch + (s_o * CLN2 + int(q[ln])) * 2 * sh.bins + (bl & ~3)
-            for a_, word in ((at, ph[mt, nt, ln]), (at + sh.bins, pl[mt, nt, ln])):
-                cta.ch_out[a_:a_ + 4] = np.frombuffer(int(word).to_bytes(4, "little"), np.int8)
+        for j, prime in enumerate(primes):
+            P = ntt.PRIMES[prime]
+            stage, b_row = stages[j], brow + j * dhp
+
+            def plain(k0, nregs):
+                offs = [ahi + k0, alo + k0, ahi + k0 + 16, alo + k0 + 16][:nregs]
+                return np.stack([stage[o[:, None] + np.arange(4)] for o in offs],
+                                1).astype(np.int64)
+
+            c = np.zeros((32, 4), np.int64)
+            for ks in range(nk32):
+                k0 = 32 * ks
+                a = ldm(stage, arow + k0, 4) if use_ldm else plain(k0, 4)
+                mma(c, a, ldm(cta.dh, b_row + k0 + 16 * ((LANE >> 3) & 1), 2))
+            if tail:
+                k0 = 32 * nk32
+                a = ldm(stage, arow + k0, 2) if use_ldm else plain(k0, 2)
+                mma(c, a, ldm(cta.dh, b_row + k0, 1))
+            hi, lo = split2(center(center(c[:, 0] * 256 + c[:, 1] + c[:, 2], P) * 256 + c[:, 3],
+                                   P))
+            ph[j, mt, nt] = (ph[j, mt, nt] if bl & 3 else 0) | ((hi & 0xFF) << sh8)
+            pl[j, mt, nt] = (pl[j, mt, nt] if bl & 3 else 0) | ((lo & 0xFF) << sh8)
+            if bl & 3 != 3:
+                continue
+            for ln in np.nonzero((slot < slots) & (q < CLN2))[0]:
+                owner, s_o = divmod(int(slot[ln]), S)
+                at = ((sh.np * owner + j) * sh.blk_ch
+                      + (s_o * CLN2 + int(q[ln])) * 2 * sh.bins + (bl & ~3))
+                words = ph[j, mt, nt, ln], pl[j, mt, nt, ln]
+                for a_, word in zip((at, at + sh.bins), words):
+                    cta.ch_out[a_:a_ + 4] = np.frombuffer(int(word).to_bytes(4, "little"),
+                                                          np.int8)
 
 
 def replay_inputs(name, batch, steps, seed, key="random"):
@@ -324,8 +364,22 @@ def replay_inputs(name, batch, steps, seed, key="random"):
     ("test_insecure", 6, 4, 2, 9, "random"),  # 4 samples per CTA, 2 n-tiles
     ("test_insecure", 2, 1, 2, 4, "random"),  # chunked key stages (large_2048's scheme)
     ("test_insecure", 7, 2, 4, 9, "worst"),   # the largest digits and key bytes: sums at bound
+    ("test_insecure", 8, 1, 8, 9, "worst"),   # the same at default_128's B=64 plan (1, 8)
 ])
 def test_kernel_d_replay_matches_twin(name, batch, spc, split, mcs, key):
     p, acc0, bk_lhs, a_hat, rng = replay_inputs(name, batch, 1, 300 + batch, key)
     got = replay(p, acc0, bk_lhs, a_hat, spc, split, mcs, rng)
+    assert torch.equal(got, nttk.blind_rotate_nttf_ref(p, acc0, bk_lhs, a_hat))
+
+
+@pytest.mark.parametrize("name,batch,spc,split,key", [
+    ("nano", 1, 1, 1, "random"),  # plain loads, a k16 tail, padded rows
+    ("nano", 5, 2, 4, "worst"),   # a partly filled row of CTAs; sums at their bound
+])
+def test_kernel_d_replay_one_prime_a_pass_matches_twin(name, batch, spc, split, key):
+    """The plan large_2048 takes, where both primes' blocks do not fit: two
+    passes of one prime a step, the first prime's residues kept for the
+    lift."""
+    p, acc0, bk_lhs, a_hat, rng = replay_inputs(name, batch, 2, 400 + batch, key)
+    got = replay(p, acc0, bk_lhs, a_hat, spc, split, 1, rng, np_=1)
     assert torch.equal(got, nttk.blind_rotate_nttf_ref(p, acc0, bk_lhs, a_hat))

@@ -269,3 +269,25 @@ def test_kernel_c_starts_after_its_gate_span_starts(card_add):
         assert start > g.start_ns
         assert launched is not None and g.start_ns <= launched <= g.end_ns
     assert np.all(np.diff([k[0] for k in kernels]) > 0)
+
+
+@pytest.mark.cuda
+def test_a_traced_nttf_gate_counts_kernel_ds_exchanges():
+    """Kernel D makes one Dh and one Ch exchange a step, each of both CRT
+    primes: a traced 'nttf' gate at default_128 counts 722 x 2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: Kernel D has no CPU mode")
+    params = tfhe.get_params("default_128")
+    ck, sk = tfhe.keygen(params, 0)
+    sk = tfhe.with_key_form(sk, "nttf")
+    a = tfhe.encrypt(ck, np.array([0, 0, 1, 1]), 1)
+    b = tfhe.encrypt(ck, np.array([0, 1, 0, 1]), 2)
+    assert tfhe.decrypt(ck, mbool.nand(sk, a, b, impl="nttf")).tolist() == [1, 1, 1, 0]
+    out = []
+    profiled(lambda: out.append(mbool.nand(sk, a, b, impl="nttf")),
+             CPU + [torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    assert tfhe.decrypt(ck, out[0]).tolist() == [1, 1, 1, 0]
+    counters = prof.counters()
+    assert counters["pbs.calls"] == 1
+    assert counters["pbs.nttf_exchanges"] == params.lwe_dimension * 2 == 722 * 2

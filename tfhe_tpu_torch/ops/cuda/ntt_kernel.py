@@ -11,10 +11,12 @@ package's.  The digits are the reference carry-chain digits (those of
 ``blind_rotate_nttf`` launches ``csrc/ntt_kernel.cu`` for CUDA tensors and
 runs its plain twin ``blind_rotate_nttf_ref`` for CPU tensors; it raises for
 anything else.  The kernel runs its three products on int8 ``mma.sync``
-with the transforms' operands as mma fragments (``kernel_tables``), and
-splits each step's bins, with their key slices, over the CTAs of a
-thread-block cluster, which exchange the transformed digits and products in
-distributed shared memory.  It keeps no
+with the transforms' operands as mma fragments (``kernel_tables``), each
+phase of a step for both CRT primes at once where their blocks fit the
+shared memory (else one prime a pass, as at ``large_2048``), and splits
+each step's bins, with their key slices, over the CTAs of a thread-block
+cluster, which exchange the transformed digits and products in
+distributed shared memory, once each a pass.  It keeps no
 batch-sized state beyond its CTAs' shared memory, so unlike the TPU kernel
 (1536 samples per call, a VMEM limit) it takes any batch in one launch.
 u32 values are int32 tensors (see ``ops/torus.py``).
@@ -32,6 +34,7 @@ from tfhe_tpu_torch.ops.cuda._build import CudaKernel, check_cuda_operand, ptr, 
 from tfhe_tpu_torch.ops.decomposer import decompose_signed_planes
 from tfhe_tpu_torch.ops.poly import monomial_mul
 from tfhe_tpu_torch.params import TfheParams
+from tfhe_tpu_torch.utils.profiling import count
 
 KERNEL = CudaKernel(
     "ntt_kernel", "blind_rotate_nttf",
@@ -41,11 +44,14 @@ KERNEL = CudaKernel(
 #: the launch plan of the last launch: samples per CTA, threads per CTA,
 #: dynamic shared memory bytes, CTAs, the CTAs of a cluster, which split the
 #: bins (``split``), the clusters the card holds at once, key stages,
-#: contraction m-tiles per stage and whether the outgoing Dh and Ch blocks
-#: share their room (1 where the shared memory is short)
+#: contraction m-tiles per stage, whether the outgoing Dh and Ch blocks
+#: share their room (1 where the shared memory is short) and the exchanges
+#: between the CTAs of a cluster a step (2: Dh and Ch, each of both primes;
+#: 4 where both primes' blocks do not fit and a step runs one prime a pass)
 last_plan: dict = {}
 PLAN_KEYS = ("samples_per_cta", "threads", "smem_bytes", "ctas", "split",
-             "max_active_clusters", "key_stages", "mtiles_per_stage", "shared_out_blocks")
+             "max_active_clusters", "key_stages", "mtiles_per_stage", "shared_out_blocks",
+             "exchanges_per_step")
 #: the mma fragments' rows per tile and K per mma (m16n8k32)
 FRAG_ROWS, FRAG_K = 8, 32
 
@@ -112,7 +118,9 @@ def blind_rotate_nttf(params: TfheParams, acc0: torch.Tensor, bk_lhs: torch.Tens
     (``ServerKey.bk_ntt_lhs``); a_hat int32[n, B] -> the final accumulator
     u32[B, k+1, N].  ``plan`` = (samples per CTA: 1, 2 or 4; split: 1, 2, 4
     or 8, see ``last_plan``) forces the kernel's plan, 0 lets it pick; the
-    CPU twin ignores it."""
+    CPU twin ignores it.  On the card each launch adds steps x
+    ``exchanges_per_step`` to the counter ``pbs.nttf_exchanges`` (while a
+    profiler runs)."""
     if all(t.device.type == "cpu" for t in (acc0, bk_lhs, a_hat)):
         return blind_rotate_nttf_ref(params, acc0, bk_lhs, a_hat)
     device = acc0.device
@@ -136,4 +144,5 @@ def blind_rotate_nttf(params: TfheParams, acc0: torch.Tensor, bk_lhs: torch.Tens
                       nplan.key_limbs, *plan, info, stream_of(out))
     last_plan.clear()
     last_plan.update(zip(PLAN_KEYS, info))
+    count("pbs.nttf_exchanges", steps * last_plan["exchanges_per_step"])
     return out
